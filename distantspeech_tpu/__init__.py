@@ -1,7 +1,8 @@
-"""distantspeech_tpu — a TPU-native multichannel speech-enhancement framework.
+"""distantspeech_tpu — a batched JAX multichannel speech-enhancement framework.
 
 A from-scratch JAX/XLA/Pallas implementation of the capabilities of
-wangwei2009/DistantSpeech (reference at /root/reference), redesigned TPU-first:
+wangwei2009/DistantSpeech (the parity tests' reference), redesigned for
+batched accelerator execution:
 
 - Data layout: batched, channels-last tensors.  Time signals are
   ``[..., samples, channels]``; spectra are ``[..., frame, bin, channel]``

@@ -69,8 +69,8 @@ def dc_notch(state: DcNotchState, x: jnp.ndarray, radius: float = 0.9) -> Tuple[
     Bv = np.array([2.0 * r - 2.0, 1.0 - den2])
 
     # constant-matrix recurrence -> blocked state-space evaluation (two bulk
-    # MXU matmuls per 256-sample block; the sample-level log-depth scan was
-    # 111 ms of the 117 ms TDGSC iteration on TPU, round-4 profile)
+    # matmuls per 256-sample block; the sample-level log-depth scan sweeps
+    # [.., N, k, k] through device memory log2(N) times, see ops.iir)
     mem_seq = constant_affine_blocked(A, Bv, x, state.mem)  # [..., N, 2] (post-sample states)
     # vout[n] = mem0[n-1] + x[n]
     mem0_prev = jnp.concatenate([state.mem[..., :1], mem_seq[..., :-1, 0]], axis=-1)

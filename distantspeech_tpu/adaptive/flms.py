@@ -4,7 +4,7 @@ Oracle: FastFreqLms (/root/reference/DistantSpeech/adaptivefilter/
 FastFreqLms.py:48-260) — the workhorse under the GSC blocking matrices,
 interference cancellers, AEC and the KWS cleaner.  One step processes one
 hop of samples; everything is batched over channels / leading axes and the
-FFT axis sits last for TPU-friendly layout.
+FFT axis sits last (contiguous minor dimension).
 
 Semantics preserved exactly, including:
 

@@ -8,7 +8,7 @@ These recursions are serial by definition (each sample's gradient uses the
 weights updated by the previous sample), so the frame axis is a ``lax.scan``;
 the win here over the reference is that the per-sample work is a fused
 tensor op (and arbitrarily many independent filters batch over leading
-axes).  The frequency-domain FLMS (``adaptive.flms``) is the TPU-native
+axes).  The frequency-domain FLMS (``adaptive.flms``) is the batched
 choice for long filters; these exist for capability parity and as oracles
 for the block variants.
 """

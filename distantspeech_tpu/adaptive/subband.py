@@ -6,8 +6,8 @@ SubbandRLS.update (SubbandRLS.py:44-95).  All operate on one frame of
 subband coefficients at a time with a per-bin tap delay line; every per-bin
 quantity batches over ``[..., F]`` so a frame is one fused tensor op, and
 the ``[..., F, N, N]`` RLS inverse-correlation recursion runs as
-multiply-reduce on the VPU (tiny batched contractions lower to per-bin
-MXU dispatches otherwise — see stats.linalg.matvec).
+elementwise multiply-reduce (tiny batched contractions become many tiny
+matmuls otherwise — see stats.linalg.matvec).
 
 Frequency-domain inputs only: the reference's optional time-domain entry
 (SubbandAF.update_input_data, SubbandAF.py:53-64) is a convenience wrapper

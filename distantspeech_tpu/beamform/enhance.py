@@ -36,7 +36,7 @@ class EnhanceConfig:
     # speech into Rvv (alpha_v 0.9998 ~ 5000-frame memory), self-cancelling
     # the target for the rest of the utterance — measured -18 dB SI-SDR on
     # the real-speech mix vs +5.1 dB with the guard on a led-in capture
-    # (REAL_AUDIO.json, round 4).  rel_diag is the f32 conditioning guard
+    # (round-4 real-speech evaluation).  rel_diag is the f32 conditioning guard
     # (see MvdrConfig).
     mvdr: MvdrConfig = MvdrConfig(mcra_L=65, vad_guard=True, rel_diag=1e-5)
     alpha_xi: float = 0.92  # decision-directed pole
@@ -91,20 +91,19 @@ def enhance_scan(cfg: EnhanceConfig, steer: jnp.ndarray, state: EnhanceState, Zt
 def enhance_scan_pallas(
     cfg: EnhanceConfig, steer: jnp.ndarray, Zt: jnp.ndarray, interpret: bool = False
 ) -> jnp.ndarray:
-    """Fast path of ``enhance_scan``: same math, split into the three scans
-    the hardware wants.
+    """Fast path of ``enhance_scan``: the same math in two passes.
 
-    1. MCRA over frames — cheap elementwise jnp scan (cross-bin smoothing
-       halo kept out of the kernel);
-    2. the covariance/inverse frame loop AND the per-bin OM-LSA gain
-       recursion — one fused vreg-tiled Pallas kernel (``ops.pallas_mvdr``).
+    1. MCRA over frames — a cheap elementwise XLA scan (its cross-bin
+       smoothing halo stays out of the kernel);
+    2. the covariance/solve frame loop AND the per-bin OM-LSA gain
+       recursion — one Pallas kernel through Triton (``ops.pallas_mvdr``).
 
-    Zt: [T, B, F, M] (exactly 4-D; the kernel's tiling wants a real batch
-    axis).  Returns Y [T, B, F].  Numerics match ``enhance_scan`` to float32
-    rounding (tests/test_pallas_mvdr.py).
+    Zt: [T, B, F, M] (exactly 4-D).  Returns Y [T, B, F].  Numerics match
+    ``enhance_scan`` to float32 rounding (tests/test_pallas_mvdr.py).
+    Needs a CUDA GPU unless ``interpret=True``.
     """
     from distantspeech_tpu.noise.mcra import mcra_run
-    from distantspeech_tpu.ops.pallas_mvdr import pallas_mvdr_scan
+    from distantspeech_tpu.ops.pallas_mvdr import pallas_mvdr_omlsa
 
     if Zt.ndim != 4:
         raise ValueError(
@@ -117,13 +116,11 @@ def enhance_scan_pallas(
     gate = p < mv.p_vad
     if mv.vad_guard:
         gate = gate & (sr <= mv.mcra.delta_s)
-    gate = gate.astype(jnp.float32)
 
-    return pallas_mvdr_scan(
-        Zt, gate, steer, alpha_v=mv.alpha_v, diag=mv.diag, rel_diag=mv.rel_diag,
-        interpret=interpret,
-        p=p, lam=lam, alpha_xi=cfg.alpha_xi, gmin=cfg.gmin,
-    )  # [T, B, F], OM-LSA gain fused into the kernel
+    return pallas_mvdr_omlsa(
+        Zt, gate.astype(jnp.float32), steer, p, lam, alpha_v=mv.alpha_v, diag=mv.diag,
+        rel_diag=mv.rel_diag, alpha_xi=cfg.alpha_xi, gmin=cfg.gmin, interpret=interpret,
+    )
 
 
 def enhance_process(
@@ -132,32 +129,15 @@ def enhance_process(
     look_angle_deg=(90.0, 0.0),
     cfg: EnhanceConfig = EnhanceConfig(),
     backend: str = "scan",
-    inv_mode: str = "ldl",
 ) -> jnp.ndarray:
     """Offline MVDR+OM-LSA of a time-domain batch.  x: [..., M, S] -> [..., S].
 
-    backend: 'scan' (pure lax.scan, any batch shape / any device),
-    'pallas' (fused MVDR/OM-LSA kernel; needs x of shape [B, M, S]),
-    'fused' (STFT through ISTFT in two Pallas calls with in-kernel MCRA;
-    needs [B, M, S] with B a multiple of 8 and n_fft a multiple of 256) or
-    'mega' (the fastest path — the whole pipeline incl. analysis/synthesis
-    in ONE Pallas call with bf16x3 DFT dots, ~1e-5 analysis error; same
-    shape restrictions as 'fused'; see ops.pallas_enhance).
-
-    inv_mode ('fused'/'mega' backends only): 'ldl' re-factors the loaded
-    noise covariance every frame (reference-exact semantics); 'rank1'
-    switches to Bennett rank-1 LDL factor updates after a 64-frame exact
-    warmup — ~7% faster end to end (the bench.py flagship path), exact up
-    to bounded loading decay / chunk-anchored rel_diag (see
-    ops.pallas_mvdr._mvdr_update_rank1 for the numerics contract)."""
+    backend: 'scan' (the plain ``lax.scan`` path: any batch shape, any
+    device) or 'pallas' (the MVDR/OM-LSA frame loop as one Triton kernel;
+    needs x of shape [B, M, S] and a CUDA GPU)."""
+    if backend not in ("scan", "pallas"):
+        raise ValueError(f"enhance_process: backend must be 'scan' or 'pallas', got {backend!r}")
     angle_rad = np.asarray(look_angle_deg, dtype=np.float64) / 180.0 * np.pi
-    if backend in ("fused", "mega"):
-        from distantspeech_tpu.ops.pallas_enhance import fused_enhance, fused_enhance_full
-
-        steer_np = np.asarray(steering_vector(geometry, angle_rad, cfg.stft.n_fft), dtype=np.complex64)
-        if backend == "mega":
-            return fused_enhance_full(x, steer_np, cfg, mxu="bf16x3", inv_mode=inv_mode)
-        return fused_enhance(x, steer_np, cfg, inv_mode=inv_mode)
     steer = jnp.asarray(steering_vector(geometry, angle_rad, cfg.stft.n_fft))
 
     X = analysis(x, cfg.stft)  # [..., M, T, F]

@@ -159,21 +159,12 @@ def fdgsc_step(
 def fdgsc_process(
     x: jnp.ndarray, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
     cfg: FdGscConfig = FdGscConfig(), dc_notch_input: bool = True, unroll: int = 1,
-    backend: str = "scan",
 ):
     """Offline FDGSC.  x: [..., M, S].
 
     Returns (output [..., S], p [..., T, F], bm_output [..., M, S']).
 
-    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py).
-    ``backend``: 'scan' (any batch shape / device) or 'fused' (the Pallas
-    frame-loop kernel, TPU, [B, M, S] with B % 8 == 0, postfilter off)."""
-    if backend == "fused":
-        from distantspeech_tpu.ops.pallas_flms import fused_fdgsc
-
-        return fused_fdgsc(x, geometry, angle_rad, cfg, dc_notch_input=dc_notch_input)
-    if backend != "scan":
-        raise ValueError(f"unknown backend {backend!r}")
+    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py)."""
     L = cfg.frame_len
     if dc_notch_input:
         _, x = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype), x, radius=0.98)

@@ -58,7 +58,7 @@ def apply_weights(W: jnp.ndarray, X: jnp.ndarray) -> jnp.ndarray:
     """Y[..., t, f] = sum_c conj(W[f, c]) X[..., c, t, f] — the whole
     spectrogram at once (reference process_freframe einsum,
     fixedbeamformer.py:163, hoisted out of the frame loop)."""
-    return jnp.einsum("fc,...ctf->...tf", jnp.conj(W), X)
+    return jnp.einsum("fc,...ctf->...tf", jnp.conj(W), X, precision="highest")
 
 
 def fixed_process(x: jnp.ndarray, W: jnp.ndarray, stft_cfg: StftConfig) -> jnp.ndarray:

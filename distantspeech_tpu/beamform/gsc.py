@@ -92,8 +92,8 @@ def gsc_step(
     spp_state, spp_out = mc_mcra_step(cfg.mc_mcra, state.spp, Z)
 
     W = a / jnp.sum(jnp.abs(a) ** 2, axis=-1, keepdims=True)  # a/(a^H a)
-    # multiply-reduce instead of einsum: keeps the tiny-M contraction on the
-    # VPU (see the mc_mcra_step note on batched small dot_generals)
+    # multiply-reduce instead of einsum: keeps the tiny-M contraction
+    # elementwise (see the mc_mcra_step note on batched small dot_generals)
     Yfbf = jnp.sum(jnp.conj(W) * Z, axis=-1)
     # blocking matrix: U_i = a_0* Z_0 - a_{i+1}* Z_{i+1} (GSC.py:217-222, :262)
     U = jnp.conj(a[:, :1]) * Z[..., :1] - jnp.conj(a[:, 1:]) * Z[..., 1:]  # [..., F, M-1]

@@ -9,8 +9,8 @@ bins (and any utterance batch), scanned over the frame axis:
 - Ryy rank-1 recursion for every bin at once (adaptivebeamformer.py:86-88);
 - the MCRA VAD gate ``p[k] < 0.4`` becomes a per-bin mask selecting between
   the updated and held noise state (adaptivebeamformer.py:94-104; computed
-  for all bins, masked into the carry — cheaper on TPU than data-dependent
-  gathering of "bins to update");
+  for all bins, masked into the carry — cheaper on a vector machine than
+  data-dependent gathering of "bins to update");
 - the reference's explicit inverse becomes a batched unrolled LDL^H solve
   against the steering vector (``stats.linalg.ldl_solve``) — MVDR only ever
   consumes R^-1 a, so the carried state is the M-vector u, not M x M;
@@ -59,7 +59,7 @@ class MvdrConfig:
     # covariance gate wide open for ~1 s; on recordings that start mid-
     # speech the target is absorbed into Rvv (alpha_v memory ~5000 frames)
     # and self-cancelled for the rest of the utterance (measured -18 dB
-    # SI-SDR on the real-speech mix, REAL_AUDIO.json r4).  The raw
+    # SI-SDR on the real-speech mix, round 4).  The raw
     # indicator is exactly the statistic p is filtered from, minus the
     # warmup forcing.  Off by default: the reference has no such guard.
 
@@ -117,8 +117,8 @@ def mvdr_step(
     u = jnp.where(update[..., None], u_cand, state.u)
 
     # w = u / (a^H u); Yf = w^H Z = (u^H Z) / conj(a^H u)
-    # multiply-reduce, not einsum: a tiny-M batched contraction lowers to
-    # per-bin dot_generals on TPU (see stats.linalg.matvec)
+    # multiply-reduce, not einsum: a tiny-M batched contraction becomes
+    # per-bin dot_generals (see stats.linalg.matvec)
     den = jnp.sum(jnp.conj(a) * u, axis=-1)
     Yf = jnp.sum(jnp.conj(u) * Z, axis=-1) / jnp.conj(den)
     return MvdrState(Ryy=Ryy, Rvv=Rvv, u=u, mcra=mcra_state), Yf
@@ -214,7 +214,7 @@ def adaptive_mvdr2_process(
     H0 = mvdr_weights(a, gauss_jordan_inv(Rvv0 + diag * eye))  # the reference's
     # pre-loop weights (adaptivebeamformer.py:152-154); applied only if n_est == 0
     (_, H_fin), Y_est = jax.lax.scan(body, (Rvv0, H0), Z[:n_est])
-    Y_rest = jnp.einsum("fm,tfm->tf", jnp.conj(H_fin), Z[n_est:])
+    Y_rest = jnp.einsum("fm,tfm->tf", jnp.conj(H_fin), Z[n_est:], precision="highest")
     Y = jnp.concatenate([Y_est, Y_rest], axis=0)
 
     # window^2-normalised OLA (adaptivebeamformer.py:175-180); the reference's

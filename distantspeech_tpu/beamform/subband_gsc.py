@@ -52,7 +52,7 @@ class SubbandGscConfig:
     # frames while McSpp's noise tracks initialise (its p sits near 0 for
     # ~2 s on captures that start mid-speech, so the canceller adapts on
     # target-present frames; N = 130 measured +0.6 dB SI-SDR over the
-    # reference behaviour on the real-speech mixes, REAL_AUDIO.json).
+    # reference behaviour on the real-speech mixes).
     # 0 matches the reference bit-exactly.
 
     @property
@@ -199,7 +199,7 @@ def subband_gsc_step(
 
 def subband_gsc_process(
     x: jnp.ndarray, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: SubbandGscConfig = SubbandGscConfig(), unroll: int = 1, backend: str = "scan",
+    cfg: SubbandGscConfig = SubbandGscConfig(), unroll: int = 1,
 ):
     """Offline SubbandGSC.  x: [..., M, S].
 
@@ -212,16 +212,7 @@ def subband_gsc_process(
     ``lax.scan``.  Bit-identical to scanning ``subband_gsc_step``
     (stft_stream == stft_frames of the zero-padded signal).
 
-    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py).
-    ``backend``: 'scan' (any batch shape / device) or 'fused' (the Pallas
-    frame-loop kernel with McSpp's covariances and inverses in VMEM, TPU,
-    [B, M, S] with B % 8 == 0 and M == 4 — see ops.pallas_sgsc)."""
-    if backend == "fused":
-        from distantspeech_tpu.ops.pallas_sgsc import fused_subband_gsc
-
-        return fused_subband_gsc(x, geometry, angle_rad, cfg)
-    if backend != "scan":
-        raise ValueError(f"unknown backend {backend!r}")
+    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py)."""
     L = cfg.frame_len
     scfg = cfg.stft
     _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype), x, radius=0.98)

@@ -7,7 +7,7 @@ matrix, non-causal FLMS interference canceller stepped by (1 - p) from an
 MCRA tracker (L=65) on the FBF spectrum, optional OMLSA-multi postfilter
 applied as sqrt(G) through a streaming STFT round-trip.
 
-TPU structure: everything frame-independent (notch, alignment, FBF, BM) is
+Structure: everything frame-independent (notch, alignment, FBF, BM) is
 computed over the whole utterance in one shot; only the genuinely recursive
 parts (MCRA, FLMS, OMLSA, transform carries) ride the ``lax.scan``.
 """
@@ -44,8 +44,7 @@ class TdGscConfig:
     # first 2L = 130 frames (~2.1 s), so on captures that start mid-speech
     # the AIC adapts at FULL rate while the target is present and cancels
     # it through blocking-matrix leakage — measured −9.5 dB SI-SDR on the
-    # real-speech mix (REAL_AUDIO.json, reference reproduces the same
-    # number).  The raw indicator is exactly the statistic p is filtered
+    # real-speech mix (the reference reproduces the same number).  The raw indicator is exactly the statistic p is filtered
     # from, minus the warmup pinning.  False matches the reference
     # bit-exactly.
 
@@ -135,21 +134,12 @@ def tdgsc_step(
 
 def tdgsc_process(
     x: jnp.ndarray, geometry: ArrayGeometry, angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg: TdGscConfig = TdGscConfig(), unroll: int = 1, backend: str = "scan",
+    cfg: TdGscConfig = TdGscConfig(), unroll: int = 1,
 ):
     """Offline TDGSC.  x: [..., M, S] -> (output [..., S], p [..., T, F],
     bm_output [..., M-1, S]) like the reference's return tuple.
 
-    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py).
-    ``backend``: 'scan' (any batch shape / device) or 'fused' (the Pallas
-    frame-loop kernel, TPU, [B, M, S] with B % 8 == 0; postfilter=True runs
-    the OMLSA-in-kernel variant)."""
-    if backend == "fused":
-        from distantspeech_tpu.ops.pallas_flms import fused_tdgsc
-
-        return fused_tdgsc(x, geometry, angle_rad, cfg)
-    if backend != "scan":
-        raise ValueError(f"unknown backend {backend!r}")
+    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py)."""
     L = cfg.frame_len
     # whole-utterance preprocessing (frame-independent)
     _, xn = dc_notch(dc_notch_init(x.shape[:-1], dtype=x.dtype), x, radius=0.98)

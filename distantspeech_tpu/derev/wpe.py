@@ -17,7 +17,8 @@ Structure per frame:
     W <- W + e* kn  per channel                   (:186-187)
 
 The [..., F, CN, CN] P-recursion is the dominant cost and is a batched
-rank-1 matmul — MXU work when CN is large, fused VPU work when small.
+rank-1 update — matmul work when CN is large, fused elementwise work when
+small.
 """
 
 from __future__ import annotations
@@ -82,7 +83,7 @@ def wpe_step(
     X = buf.reshape(*buf.shape[:-2], C * N)  # [..., F, C*N]
 
     # matvec/vecmat as multiply-reduce: the C*N-sized batched contractions
-    # lower to per-bin dot_generals on TPU otherwise (see stats.linalg.matvec)
+    # become per-bin dot_generals otherwise (see stats.linalg.matvec)
     y = matvec(jnp.conj(state.W), X)
     e = d - y
 

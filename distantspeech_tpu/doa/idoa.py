@@ -81,7 +81,8 @@ def idoa_step(
     B_hat = Y_xcorr / Y_smooth[..., None].astype(Y_xcorr.dtype)  # [..., F, M-1]
 
     den = psi_norm * jnp.linalg.norm(B_hat, axis=-1)[..., None]  # [..., F, Theta]
-    Delta = jnp.real(jnp.einsum("fmt,...fm->...ft", jnp.conj(psi).astype(B_hat.dtype), B_hat)) / (den + 1e-6)
+    Delta = jnp.real(jnp.einsum("fmt,...fm->...ft", jnp.conj(psi).astype(B_hat.dtype), B_hat,
+                                precision="highest")) / (den + 1e-6)
 
     avg = (1.0 - state.p) * 0.98
     mu_Delta = avg * state.mu_Delta + (1.0 - avg) * Delta

@@ -5,8 +5,8 @@ The reference loops 360 steering directions x frames in Python; here the
 whole angle spectrum is one batched contraction.  Key restructuring: the
 PHAT normaliser |a* y| equals |y| (|a| = 1), so the per-angle normalisation
 of the reference collapses to ONE whitening of the spectrum followed by a
-[Theta, F, M] x [T, F, M] einsum — the hot op is a matmul on the MXU
-instead of 360 x T Python iterations.
+[Theta, F, M] x [T, F, M] einsum — the hot op is one batched complex
+matmul instead of 360 x T Python iterations.
 """
 
 from __future__ import annotations
@@ -57,33 +57,24 @@ def srp_angle_spectrum(
     else:
         Yw = Y_tfm
     # [T, ..., F, M] x [Theta, F, M] -> [T, ..., Theta, F]
-    acc = jnp.einsum("afm,...fm->...af", jnp.conj(grid).astype(Y_tfm.dtype), Yw)
+    acc = jnp.einsum("afm,...fm->...af", jnp.conj(grid).astype(Y_tfm.dtype), Yw, precision="highest")
     return jnp.sum(jnp.abs(acc), axis=-1)
 
 
 def srp_process(
     x: jnp.ndarray, geometry: ArrayGeometry, cfg: SrpConfig = SrpConfig(),
-    phat: bool = True, backend: str = "scan",
+    phat: bool = True,
 ) -> Tuple[jnp.ndarray, jnp.ndarray]:
     """Offline SRP-PHAT of a time batch.
 
     x: [..., M, S].  Returns (angle_spectrum [..., T, Theta], p [..., T, F])
     with the same MCRA track the reference also reports (srp.py:37-41).
-
-    ``backend``: 'scan' (the XLA einsum — it materialises the [T, ..,
-    Theta, F] steered field in HBM) or 'fused' (ops.pallas_srp: per-bin
-    steered power accumulated in VMEM, TPU)."""
+    The angle spectrum is one XLA einsum that materialises the [T, ..,
+    Theta, F] steered field in device memory."""
     X = analysis(x, cfg.stft)  # [..., M, T, F]
     Y = jnp.moveaxis(jnp.moveaxis(X, -3, -1), -3, 0)  # [T, ..., F, M]
     grid = srp_steering_grid(cfg, geometry)
-    if backend == "fused":
-        from distantspeech_tpu.ops.pallas_srp import fused_srp_spectrum
-
-        spec = jnp.moveaxis(fused_srp_spectrum(Y, grid, phat=phat), 0, -2)
-    elif backend == "scan":
-        spec = jnp.moveaxis(srp_angle_spectrum(Y, jnp.asarray(grid), phat=phat), 0, -2)
-    else:
-        raise ValueError(f"unknown backend {backend!r}")
+    spec = jnp.moveaxis(srp_angle_spectrum(Y, jnp.asarray(grid), phat=phat), 0, -2)
     power = jnp.abs(Y[..., 0]) ** 2  # [T, ..., F]
     _, p = mcra_run(cfg.mcra, power)
     return spec, jnp.moveaxis(p, 0, -2)

@@ -89,9 +89,9 @@ def mc_mcra_step(cfg: McMcraConfig, state: McMcraState, y: jnp.ndarray) -> Tuple
 
     # All downstream uses of Pinv are traces / quadratic forms over CxC
     # matrices.  Batched [.., F, C, C] dot_generals with a tiny contraction
-    # lower to per-bin MXU dispatches on TPU (the jnp.linalg.inv problem in
-    # another guise — see stats/linalg.py); broadcast-multiply-reduce keeps
-    # the whole step on the VPU.  Identical math:
+    # become per-bin matmul dispatches (see stats/linalg.py);
+    # broadcast-multiply-reduce keeps the whole step elementwise and
+    # fusible.  Identical math:
     #   tr(Pinv @ Phi_yy)            = sum_ij Pinv_ij * Phi_yy_ji
     #   y^T Pinv conj(y)             = sum_i y_i conj(v_i),  v = Pinv y
     #   conj(y)^T Pinv Phi_xx Pinv y = conj(v)^T (Phi_xx v)  — equal only up

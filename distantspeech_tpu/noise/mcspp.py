@@ -113,13 +113,13 @@ def mcspp_step(
     Pinv = gauss_jordan_inv(Phi_vv + diag)
 
     # traces / quadratic forms as multiply-reduce: batched CxC dot_generals
-    # are per-bin MXU dispatches on TPU (see stats.linalg.matvec)
+    # are per-bin matmul dispatches (see stats.linalg.matvec)
     xi = jnp.real(trace_mm(Pinv, Phi_yy)) - C
     neg = xi < 0.0  # [..., F]
     # one repair inverse, not two: inv(Phi_yy + diag*1[frm_cnt<rf]) selects
     # the same branch values bit-exactly (diag*0 == 0, A + 0 == A) while
-    # halving the repair's Gauss-Jordan work — the three-inverse frame was
-    # ~half the McSpp scan cost on TPU (benchmarks/profile_subband_gsc.py)
+    # halving the repair's Gauss-Jordan work (the inverses dominate the
+    # McSpp frame)
     rep_gate = jnp.where(state.frm_cnt < cfg.repair_frames, 1.0, 0.0)
     repair = gauss_jordan_inv(Phi_yy + rep_gate * diag)
     Pinv = jnp.where(neg[..., None, None], repair, Pinv)

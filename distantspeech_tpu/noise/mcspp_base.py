@@ -86,7 +86,7 @@ def mcspp_base_step(cfg: McSppBaseConfig, state: McSppBaseState, y: jnp.ndarray)
     Pinv = gauss_jordan_inv(state.Phi_vv.real + cfg.diag * eye)  # real (mcspp_base.py:274)
 
     # traces / quadratic forms as multiply-reduce: batched CxC dot_generals
-    # are per-bin MXU dispatches on TPU (see stats.linalg.matvec)
+    # are per-bin matmul dispatches (see stats.linalg.matvec)
     xi = trace_mm(Pinv, Phi_xx.real)
     # gamma = y^H Pinv Phi_xx Pinv y   on real matrices (mcspp_base.py:278-280)
     lv = vecmat(jnp.conj(y), Pinv)  # y^H Pinv

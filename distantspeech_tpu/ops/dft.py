@@ -1,17 +1,16 @@
-"""Small real-FFT as MXU matmuls.
+"""Small real-FFT as matmuls.
 
-XLA's batched FFT is slow on TPU for the small sizes this library uses
-(256-2048 points, called once per frame inside ``lax.scan``): the flagship
-profile showed rfft as the single most expensive op.  An N-point rDFT is a
+The sizes this library uses are small (256-2048 points, called once per
+frame inside ``lax.scan``).  An N-point rDFT is a
 ``[..., N] @ [N, 2(N/2+1)]`` real matmul — O(N^2) flops instead of
-O(N log N), but the MXU's throughput advantage makes it ~3x faster at these
-sizes, and the matrices (<= 2048 x 2050 f32 = 16 MB at the cap) are
-compile-time constants.
+O(N log N), but one well-shaped matmul that fuses with its neighbours, and
+the matrices (<= 2048 x 2050 f32 = 16 MB at the cap) are compile-time
+constants.  Whether cuFFT beats it on the GPU is not measured yet.
 
 ``rdft``/``irdft`` are drop-in (axis=-1) replacements for ``jnp.fft.rfft`` /
 ``jnp.fft.irfft`` that fall back to the FFT above ``MATMUL_MAX_N``.
-precision='highest' keeps f32 error ~1e-7 (the default bf16 pass is ~1e-3
-and would break reference parity).
+precision='highest' keeps f32 error ~1e-7 (a reduced-precision pass —
+bf16 or TF32 — is ~1e-3 and would break reference parity).
 """
 
 from __future__ import annotations
@@ -49,7 +48,7 @@ def _inv_mat(n: int) -> np.ndarray:
 
 
 def rdft(x: jnp.ndarray, n: int | None = None, axis: int = -1) -> jnp.ndarray:
-    """``jnp.fft.rfft(x, n=n, axis=-1)`` as one MXU matmul (small n)."""
+    """``jnp.fft.rfft(x, n=n, axis=-1)`` as one matmul (small n)."""
     assert axis in (-1, x.ndim - 1), "rdft only supports the last axis"
     L = x.shape[-1]
     if n is None:
@@ -67,7 +66,7 @@ def rdft(x: jnp.ndarray, n: int | None = None, axis: int = -1) -> jnp.ndarray:
 
 
 def irdft(X: jnp.ndarray, n: int | None = None, axis: int = -1) -> jnp.ndarray:
-    """``jnp.fft.irfft(X, n=n, axis=-1)`` as one MXU matmul (small n)."""
+    """``jnp.fft.irfft(X, n=n, axis=-1)`` as one matmul (small n)."""
     assert axis in (-1, X.ndim - 1), "irdft only supports the last axis"
     if n is None:
         n = 2 * (X.shape[-1] - 1)

@@ -3,15 +3,12 @@
 Oracle: fir_filter (/root/reference/DistantSpeech/beamformer/fixedbeamformer.py:13-48)
 — the reference runs an O(samples * taps) per-channel scalar loop per block.
 
-TPU formulation: the convolution is a block-Toeplitz MATMUL, not a
-``lax.conv``.  Grouped small-channel 1-D convolutions lower onto the TPU's
-convolution path with per-group dispatch and dominated every GSC-family
-pipeline: the 84-tap 4-channel time alignment alone measured **11.2 ms**
-of the 24 ms fused-SubbandGSC iteration at B=32 (round-5 profile) — ~70x
-off the MXU roofline.  Expressing each output block as
-``window @ T`` with ``T[i, o] = flip(coeffs)[i - o]`` runs the same math
-as one well-shaped MXU contraction per channel (the house pattern: see
-transform.stft's windowed-DFT matmuls and ops.iir's blocked state-space).
+Formulation: the convolution is a block-Toeplitz MATMUL, not a
+``lax.conv``.  Grouped small-channel 1-D convolutions lower with per-group
+dispatch; expressing each output block as ``window @ T`` with
+``T[i, o] = flip(coeffs)[i - o]`` runs the same math as one well-shaped
+contraction per channel (the house pattern: see transform.stft's
+windowed-DFT matmuls and ops.iir's blocked state-space).
 The K-1 tail samples are carried between blocks exactly like the
 reference's ``fir_cache``.
 """
@@ -40,8 +37,7 @@ def fir_block_taps(coeffs: jnp.ndarray, L: int) -> jnp.ndarray:
     """Precompute the [C, K-1+L, L] block-Toeplitz matrix for
     ``fir_filter_block`` calls with L-sample blocks.  Build this ONCE
     outside any ``lax.scan`` and pass it as the ``coeffs`` argument —
-    built inside a scan body the gather is re-executed every step (it cost
-    a measured 35 ms/iteration on the full-stack scan at B=32)."""
+    built inside a scan body the gather is re-executed every step."""
     return _tap_matrix(coeffs, coeffs.shape[-1] - 1 + L, L)
 
 

@@ -6,7 +6,7 @@ feature.py:7-63).  A first-order (or small-state affine) recurrence
 
     s[n] = A[n] s[n-1] + b[n]
 
-is associative under composition (A2 A1, A2 b1 + b2), so on TPU we evaluate
+is associative under composition (A2 A1, A2 b1 + b2), so we can evaluate
 it in O(log N) depth with full vector-unit utilisation instead of an
 N-step scan.  For the short per-block streams of the realtime path the
 difference is minor, but for whole-utterance offline processing this is the
@@ -52,9 +52,8 @@ def affine_recurrence(A: jnp.ndarray, b: jnp.ndarray, s0: jnp.ndarray) -> jnp.nd
         A1, b1 = left
         A2, b2 = right
         # A2 @ A1 / A2 @ b1 as broadcast-multiply-reduce: a batched k x k
-        # dot_general over the huge N axis lowers to per-element MXU
-        # dispatches on TPU (see stats.linalg.matvec) — measured as the
-        # entire 0.9 s/iter TDGSC-family preprocessing floor in round 3.
+        # dot_general over the huge N axis becomes per-element matmul
+        # dispatches (see stats.linalg.matvec).
         A21 = jnp.sum(A2[..., :, :, None] * A1[..., None, :, :], axis=-2)
         b21 = jnp.sum(A2 * b1[..., None, :], axis=-1) + b2
         return A21, b21
@@ -98,12 +97,11 @@ def constant_affine_blocked(A, Bv, x: jnp.ndarray, s0: jnp.ndarray, block: int =
 
     Same recurrence as ``affine_recurrence`` with A[n] = A and
     b[n] = Bv * x[n], but evaluated by block state-space decomposition:
-    two bulk MXU matmuls per block (in-block Toeplitz response + initial-
+    two bulk matmuls per block (in-block Toeplitz response + initial-
     state decay) around a block-level affine recurrence of N//block steps.
     The log-depth sample-level scan materialises [..., N, k, k] tensors at
-    every of its log2(N) sweeps — measured 111 ms of the 117 ms TDGSC
-    iteration (the whole round-3 "GSC family serial floor" was this one
-    op); the blocked form is ~2.1e9 MACs at flagship size, ~100 us on MXU.
+    every of its log2(N) sweeps, so it moves O(N k^2 log N) bytes through
+    device memory; the blocked form is ~2.1e9 MACs at flagship size.
     """
     import numpy as np
 

@@ -1,29 +1,29 @@
-"""Pallas TPU kernel: the fused MVDR frame recursion.
+"""Pallas (Triton route) kernel: the flagship MVDR + OM-LSA frame recursion.
 
-The flagship pipeline's hot loop is a ``lax.scan`` over frames whose carry
-(the per-bin noise covariance and its inverse) round-trips through HBM every
-iteration and whose per-step ops each pay loop overhead.  This kernel runs
-the ENTIRE frame loop inside ``pallas_call``: the covariance state lives in
-VMEM scratch across all frames, the per-frame work is an unrolled complex
-Gauss-Jordan inverse and MVDR weight evaluation, and HBM is touched once per
-frame for input/output only.
+The flagship's hot loop is a ``lax.scan`` over ~500 frames whose carry (the
+per-bin [B, F, M, M] noise covariance) goes through device memory on every
+frame, and each frame is several small fused launches (``enhance_scan``).
+The work per lane is tiny (about 1 kFLOP per (utterance, bin) per frame),
+so that loop is launch- and latency-bound, far from either roofline.
 
-Layout (the part that makes it fast): TPU vregs are (8 sublanes, 128 lanes).
-Frequency bins fill the lane axis and a tile of 8 batch items fills the
-sublane axis, so every elementwise op in the recursion runs on full vregs —
-a lanes-only layout leaves 7/8 of the VPU idle (measured: same speed as the
-XLA scan).  The frame axis is chunked through the innermost grid dimension;
-the covariance scratch persists across chunks (TPU grid cells execute
-sequentially), so T is unbounded without blowing VMEM.
+This kernel runs the WHOLE frame loop inside one ``pallas_call``:
 
-Split-complex throughout (TPU has no native complex).  The MCRA gate p is
-computed OUTSIDE (a cheap elementwise jnp scan) and fed in as a [T, B, F]
-gate mask — keeping the cross-bin smoothing halo out of the kernel.
+- the grid runs over blocks of the flattened (utterance x bin) lane axis
+  only; blocks are independent (no sequential grid axis, nothing carried
+  between blocks);
+- inside a block a ``lax.fori_loop`` walks the frames; the covariance's
+  lower triangle, the held solve vector u and the OM-LSA carries
+  (G_H1, gamma) are loop carries, i.e. registers — device memory is read
+  once per frame for the spectra and written once for the output;
+- inputs are laid out ``[T, M, lanes]`` so each frame's loads coalesce.
 
-The jnp reference semantics (beamform.mvdr.mvdr_step without the MCRA part)
-are reproduced exactly; ``tests/test_pallas_mvdr.py`` checks the kernel in
-interpreter mode against the scan.  Oracle for the recursion itself:
-/root/reference/DistantSpeech/beamformer/adaptivebeamformer.py:86-105.
+Split-complex throughout.  The MCRA speech-presence track (cross-bin
+smoothing) stays an XLA pre-scan (``beamform.enhance.enhance_scan_pallas``)
+and comes in as per-frame gate / p / lambda_d planes.
+
+Semantics are ``enhance_step`` without MCRA (``tests/test_pallas_mvdr.py``
+checks the kernel in interpret mode against the float64 scan).  Oracle for
+the recursion: DistantSpeech/beamformer/adaptivebeamformer.py:86-105.
 """
 
 from __future__ import annotations
@@ -34,9 +34,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
 
-_SUB = 8  # sublane tile: batch items per grid cell
+KERNEL_NAME = "mvdr_omlsa_frame_loop"
+
+# One lane per thread: at M = 8 a lane keeps ~200 live float32 values (82
+# carries plus the LDL temporaries), which fits the register file only at
+# one lane per thread.  The frame chain is latency-bound, so the block size
+# barely matters (32, 64 and 128 lanes were within 2% end to end on an
+# H100); 32 pads least (the flagship's 64 x 129 lanes need no padding).
+BLOCK_LANES = 32
+NUM_WARPS = BLOCK_LANES // 32
 
 
 def _cmul(ar, ai, br, bi):
@@ -53,10 +61,11 @@ def _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_
     load = diag + rel_diag * tr(R)/M, matching ``MvdrConfig.rel_diag``
     (the complex64 production guard; beamform/mvdr.py:96-100).
 
-    zr/zi: [M, 8, Ft] (or any per-mic indexable of [8, Ft] tiles);
-    upd: bool [8, Ft] covariance-update gate, or None for unconditional
-    updates; ar/ai: [M, 8, Ft]; scratch refs Rr/Ri [M, M, 8, Ft],
-    Ur/Ui [M, 8, Ft]."""
+    Route-neutral elementwise code: every operand is one lane vector.
+    zr/zi, ar/ai: per-mic sequences of lanes; upd: bool lanes (the
+    covariance-update gate) or None for unconditional updates; Rr/Ri:
+    mappings (i, j) -> lanes for i >= j (Ri only i > j); Ur/Ui: per-mic
+    mutable sequences.  Rr, Ri, Ur and Ui are updated in place."""
     beta = 1.0 - alpha_v
 
     def gated(new, old):
@@ -80,7 +89,7 @@ def _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_
         tr_R = Rr[0, 0]
         for i in range(1, M):
             tr_R = tr_R + Rr[i, i]
-        load = diag + (rel_diag / M) * tr_R  # [8, Ft] per-lane loading
+        load = diag + (rel_diag / M) * tr_R  # per-lane loading
 
     # --- LDL^H of A = R + load I (unit lower L, real diagonal D) -----------
     Lr = [[None] * M for _ in range(M)]
@@ -131,394 +140,145 @@ def _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_
 
 def _mvdr_output(zr, zi, ar, ai, Ur, Ui, M):
     """y = w^H z with w = u / (a^H u) (mvdr_step:90-91), u held in Ur/Ui."""
-    shp = zr[0].shape
-    den_r = jnp.zeros(shp, dtype=jnp.float32)
-    den_i = jnp.zeros(shp, dtype=jnp.float32)
-    for r in range(M):
-        tr, ti = _cmul(ar[r], -ai[r], Ur[r], Ui[r])  # conj(a) * u
+    den_r, den_i = _cmul(ar[0], -ai[0], Ur[0], Ui[0])  # conj(a) * u
+    for r in range(1, M):
+        tr, ti = _cmul(ar[r], -ai[r], Ur[r], Ui[r])
         den_r, den_i = den_r + tr, den_i + ti
     # w^H z = conj(u/den)^T z = (u^H z) / conj(den)
-    nr = jnp.zeros(shp, dtype=jnp.float32)
-    ni = jnp.zeros(shp, dtype=jnp.float32)
-    for r in range(M):
-        tr, ti = _cmul(Ur[r], -Ui[r], zr[r], zi[r])  # conj(u) * z
+    nr, ni = _cmul(Ur[0], -Ui[0], zr[0], zi[0])  # conj(u) * z
+    for r in range(1, M):
+        tr, ti = _cmul(Ur[r], -Ui[r], zr[r], zi[r])
         nr, ni = nr + tr, ni + ti
     dmag = den_r * den_r + den_i * den_i
     cinv_r, cinv_i = den_r / dmag, den_i / dmag  # 1 / conj(den)
     return _cmul(nr, ni, cinv_r, cinv_i)
 
 
-def _mvdr_frame(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag=0.0):
-    """One MVDR frame (LDL mode): covariance/solve update + beamformed
-    output.  See ``_mvdr_update_ldl`` / ``_mvdr_output``."""
-    _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag)
-    return _mvdr_output(zr, zi, ar, ai, Ur, Ui, M)
-
-
-
-def _ldl_factor_into(Rr, Ri, M, diag, rel_diag=0.0):
-    """Overwrite the covariance scratch with its LDL^H factors, in place.
-
-    Runs ONCE, at the warmup->rank1 handover (end of the first frame chunk):
-    compute load = diag + rel_diag * tr(R)/M per lane (the same loading the
-    LDL warmup frames used) and factor A = R + load I as L D L^H (unit lower
-    L, real positive D).  The unit-lower off-diagonals overwrite Rr/Ri[i>j]
-    and D overwrites the diagonal slots Rr[i][i] (L's unit diagonal is
-    implicit; Ri[i][i] stays unused).  From here on the scratch IS the
-    factorisation and ``_mvdr_update_rank1`` maintains it by Bennett rank-1
-    factor updates.  O(M^3/6) once — amortised to nothing over the
-    utterance."""
-    load = diag
-    if rel_diag:
-        tr_R = Rr[0, 0]
-        for i in range(1, M):
-            tr_R = tr_R + Rr[i, i]
-        load = diag + (rel_diag / M) * tr_R  # [8, Ft] per-lane loading
-    # --- LDL^H of A = R + load I (same recurrence as _mvdr_update_ldl) -----
-    Lr = [[None] * M for _ in range(M)]
-    Li = [[None] * M for _ in range(M)]
-    D = [None] * M
-    Dinv = [None] * M
-    for j in range(M):
-        d = Rr[j, j] + load
-        for k in range(j):
-            d = d - (Lr[j][k] * Lr[j][k] + Li[j][k] * Li[j][k]) * D[k]
-        D[j] = d
-        Dinv[j] = 1.0 / d
-        for i in range(j + 1, M):
-            sr, si = Rr[i, j], Ri[i, j]
-            for k in range(j):
-                tr, ti = _cmul(Lr[i][k], Li[i][k], Lr[j][k], -Li[j][k])
-                sr, si = sr - tr * D[k], si - ti * D[k]
-            Lr[i][j] = sr * Dinv[j]
-            Li[i][j] = si * Dinv[j]
-    # all reads of Rr/Ri are done — safe to overwrite with the factors
-    for i in range(M):
-        Rr[i, i] = D[i]
-        for j in range(i):
-            Rr[i, j] = Lr[i][j]
-            Ri[i, j] = Li[i][j]
-    return load
-
-
-def _refresh_loading(Rr, Ri, Ld, M, diag, rel_diag):
-    """Re-anchor the rank-1 path's frozen loading, in place (chunk starts).
-
-    The Bennett recursion tracks A = Rvv + baked I where ``baked`` (held in
-    the Ld scratch plane) decays by alpha per gated update, while the
-    reference recomputes load = diag + rel_diag tr(Rvv)/M fresh every
-    frame.  For rel_diag > 0 the rel part DOMINATES (load ~ 1e-3 vs diag
-    1e-6 at speech powers) and tr(Rvv) keeps growing for thousands of
-    frames (alpha_v memory), so freezing it after warmup leaves a
-    deviation ~rel_diag * d tr that reaches percent level on sparsely
-    updated lanes (measured 2.8e-2 on-device on the benched guarded
-    config).  This reconstructs Rvv = L D L^H - baked I from the factors
-    (exactly PSD up to f32 roundoff ~eps ||A||, safely below the rel-part
-    loading floor rel_diag ||A||/M ~ 20x eps ||A||), refactors with fresh
-    loading via ``_ldl_factor_into``, and records the new baked value —
-    bounding the staleness to one frame chunk (~0.4 s).  O(M^3/3) once per
-    chunk, amortised to ~2% of a frame.  Only called when rel_diag > 0:
-    with pure diag loading the decay is load (1 - alpha^n) ~ 1e-7 absolute
-    and the refresh would risk eps ||A|| roundoff against a 1e-6 floor."""
-    baked = Ld[...]
-    # reconstruct the lower triangle of Rvv = L D L^H - baked I (L unit
-    # lower from Rr/Ri off-diagonals, D from the diagonal slots)
-    Rv = [[None] * M for _ in range(M)]
-    Iv = [[None] * M for _ in range(M)]
-    for i in range(M):
-        acc = Rr[i, i]  # k == i term: D[i] |L[i][i]|^2 = D[i]
-        for k in range(i):
-            acc = acc + (Rr[i, k] * Rr[i, k] + Ri[i, k] * Ri[i, k]) * Rr[k, k]
-        Rv[i][i] = acc - baked
-        for j in range(i):
-            # sum_{k<=j} L[i][k] D[k] conj(L[j][k]); k == j term: L[i][j] D[j]
-            sr, si = Rr[i, j] * Rr[j, j], Ri[i, j] * Rr[j, j]
-            for k in range(j):
-                tr, ti = _cmul(Rr[i, k], Ri[i, k], Rr[j, k], -Ri[j, k])
-                sr, si = sr + tr * Rr[k, k], si + ti * Rr[k, k]
-            Rv[i][j], Iv[i][j] = sr, si
-    for i in range(M):
-        Rr[i, i] = Rv[i][i]
-        for j in range(i):
-            Rr[i, j] = Rv[i][j]
-            Ri[i, j] = Iv[i][j]
-    Ld[...] = _ldl_factor_into(Rr, Ri, M, diag, rel_diag)
-
-
-def _mvdr_update_rank1(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, Ld=None):
-    """Gated Bennett rank-1 update of the LDL^H factors of
-    A = Rvv + load I, plus the triangular solves for u = A^-1 a — the
-    post-warmup fast path of ``inv_mode='rank1'``.
-
-    The reference recursion Rvv' = alpha Rvv + (1-alpha) z z^H gives
-    A' = alpha [A + (b/a) z z^H] + (1-alpha) load I with b/a =
-    (1-alpha)/alpha.  Dropping the last term (so the loading decays as
-    load * alpha^n instead of staying fixed) makes the update exactly
-    rank-1 in A, and Bennett's algorithm applies it DIRECTLY to the unit-
-    lower/diagonal factors in O(M^2): column j consumes the transformed
-    update vector w, inflates d_j by sigma |w_j|^2, and rotates the
-    column below it — positive-definiteness is preserved BY CONSTRUCTION
-    (d only ever grows by a nonnegative term, then scales by alpha), which
-    is what makes this stable in float32 where tracking the INVERSE via
-    Sherman-Morrison diverges: under the sparse vad_guard update gate
-    cond(A) reaches ~1e4-1e6 on rarely-updated lanes, and an inverse
-    recursion accumulates cond * eps per update multiplicatively (measured:
-    O(1) output error within 50 frames), while factor updates keep the
-    error a non-compounding random walk (measured: <= 3.4e-4 transient
-    over 500 gated frames, ~1e-6 steady).
-
-    u is then solved FRESH each frame from the candidate factors — the
-    same two triangular solves as the LDL path, whose error is per-frame,
-    not recursive.  Versus the LDL path this drops the O(M^3/6)
-    refactorisation and the O(M^2/2) covariance rank-1 update for an
-    O(M^2/2) factor update: ~1.35x fewer VPU ops per frame at M = 8 with
-    the same 8 reciprocals (Bennett's d' reciprocals double as the solve's
-    D^-1).
-
-    Numerics contract: exact up to (a) loading decay load*(1 - alpha^n)
-    (~1e-7 absolute over a 4 s utterance at alpha=0.9998) and (b)
-    ``rel_diag`` trace-loading honoured through warmup then frozen
-    (~rel_diag * cond relative); both bounded end-to-end by bench.py's
-    parity gates.  Scratch layout: L off-diagonals in Rr/Ri[i>j], real D
-    in Rr[i][i] (see ``_ldl_factor_into``)."""
-    ba = (1.0 - alpha_v) / alpha_v
-    inv_a = 1.0 / alpha_v
-
-    def gated(new, old):
-        return new if upd is None else jnp.where(upd, new, old)
-
-    # --- Bennett candidate update of (L, D); sigma starts at b/a -----------
-    wr = [zr[i] for i in range(M)]
-    wi = [zi[i] for i in range(M)]
-    Lr = [[None] * M for _ in range(M)]
-    Li = [[None] * M for _ in range(M)]
-    Dn = [None] * M
-    Dinv = [None] * M
-    sig = ba
-    for j in range(M):
-        pr, pi = wr[j], wi[j]
-        dj = Rr[j, j] + sig * (pr * pr + pi * pi)
-        r = 1.0 / dj  # the ONE reciprocal per column (re-used as D^-1)
-        sr_ = sig * r
-        br, bi = sr_ * pr, -(sr_ * pi)  # b = sigma conj(p) / d'
-        sig = sig * Rr[j, j] * r
-        Dn[j] = alpha_v * dj
-        Dinv[j] = r * inv_a
-        for i in range(j + 1, M):
-            tr, ti = _cmul(pr, pi, Rr[i, j], Ri[i, j])
-            wr[i], wi[i] = wr[i] - tr, wi[i] - ti
-            tr, ti = _cmul(br, bi, wr[i], wi[i])
-            Lr[i][j] = Rr[i, j] + tr
-            Li[i][j] = Ri[i, j] + ti
-
-    # --- solve L v = a (unit diag), v *= D^-1, L^H u = v -------------------
-    vr = [None] * M
-    vi = [None] * M
-    for i in range(M):
-        sr_, si_ = ar[i], ai[i]
-        for k in range(i):
-            tr, ti = _cmul(Lr[i][k], Li[i][k], vr[k], vi[k])
-            sr_, si_ = sr_ - tr, si_ - ti
-        vr[i], vi[i] = sr_, si_
-    for i in range(M):
-        vr[i], vi[i] = vr[i] * Dinv[i], vi[i] * Dinv[i]
-    ur = [None] * M
-    ui = [None] * M
-    for i in range(M - 1, -1, -1):
-        sr_, si_ = vr[i], vi[i]
-        for k in range(i + 1, M):
-            tr, ti = _cmul(Lr[k][i], -Li[k][i], ur[k], ui[k])
-            sr_, si_ = sr_ - tr, si_ - ti
-        ur[i], ui[i] = sr_, si_
-
-    # --- gated stores: hold factors and u where the gate is closed ---------
-    for i in range(M):
-        Rr[i, i] = gated(Dn[i], Rr[i, i])
-        Ur[i] = gated(ur[i], Ur[i])
-        Ui[i] = gated(ui[i], Ui[i])
-        for j in range(i):
-            Rr[i, j] = gated(Lr[i][j], Rr[i, j])
-            Ri[i, j] = gated(Li[i][j], Ri[i, j])
-    if Ld is not None:  # baked-loading decay for _refresh_loading (rel_diag)
-        Ld[...] = gated(alpha_v * Ld[...], Ld[...])
-
-
-def _mvdr_kernel(
-    zr_ref, zi_ref, gate_ref, ar_ref, ai_ref,  # inputs
-    yr_ref, yi_ref,  # outputs
-    Rr, Ri, Ur, Ui,  # scratch: lower-tri covariance [M, M, 8, Ft]; held solve vector [M, 8, Ft]
-    *, Tc: int, M: int, alpha_v: float, diag: float, rel_diag: float,
-):
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        Rr[...] = jnp.zeros_like(Rr)
-        Ri[...] = jnp.zeros_like(Ri)
-        Ur[...] = jnp.zeros_like(Ur)
-        Ui[...] = jnp.zeros_like(Ui)
-
-    ar = ar_ref[0]  # steering [M, 8, Ft] (materialised per packed element)
-    ai = ai_ref[0]
-
-    def frame(t, _):
-        yr, yi = _mvdr_frame(
-            zr_ref[0, t], zi_ref[0, t], gate_ref[0, t] > 0.5, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag
-        )
-        yr_ref[0, t] = yr
-        yi_ref[0, t] = yi
-        return 0
-
-    jax.lax.fori_loop(0, Tc, frame, 0)
+def _tri_keys(M):
+    """Lower-triangle slots: (i, j) for i >= j (real part) and i > j (imag)."""
+    low = [(i, j) for i in range(M) for j in range(i + 1)]
+    return low, [(i, j) for (i, j) in low if i > j]
 
 
 def _mvdr_omlsa_kernel(
     zr_ref, zi_ref, gate_ref, p_ref, lam_ref, ar_ref, ai_ref,  # inputs
     yr_ref, yi_ref,  # outputs
-    Rr, Ri, Ur, Ui, Gh, Gam,  # scratch (+ OM-LSA gain carry [8, Ft] x2)
-    *, Tc: int, M: int, alpha_v: float, diag: float, rel_diag: float, alpha_xi: float, gmin: float,
+    *, T: int, M: int, alpha_v: float, diag: float, rel_diag: float, alpha_xi: float, gmin: float,
 ):
-    """The full flagship frame: MVDR beamform + decision-directed OM-LSA
-    gain (enhance_step, beamform/enhance.py; oracle mcspp_base.py:140-156).
-    p and lambda_d come from the MCRA pre-scan; the gain recursion's carry
-    (G_H1, gamma) lives in scratch like the covariance."""
-
-    @pl.when(pl.program_id(1) == 0)
-    def _init():
-        Rr[...] = jnp.zeros_like(Rr)
-        Ri[...] = jnp.zeros_like(Ri)
-        Ur[...] = jnp.zeros_like(Ur)
-        Ui[...] = jnp.zeros_like(Ui)
-        Gh[...] = jnp.ones_like(Gh)
-        Gam[...] = jnp.ones_like(Gam)
-
-    ar = ar_ref[0]
-    ai = ai_ref[0]
+    """One block of lanes through all T frames: MVDR beamform + decision-
+    directed OM-LSA gain (enhance_step, beamform/enhance.py; oracle
+    mcspp_base.py:140-156).  z refs: [T, M, lanes]; gate/p/lam and the
+    outputs: [T, lanes]; steering ar/ai: [M, lanes]."""
+    low, strict = _tri_keys(M)
+    ar = [ar_ref[m, :] for m in range(M)]
+    ai = [ai_ref[m, :] for m in range(M)]
+    zero = jnp.zeros_like(ar[0])
+    one = jnp.ones_like(ar[0])
     log_gmin = float(np.log(gmin))
 
-    def frame(t, _):
-        yr, yi = _mvdr_frame(
-            zr_ref[0, t], zi_ref[0, t], gate_ref[0, t] > 0.5, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag
-        )
-        p = p_ref[0, t]  # [8, Ft]
-        lam = jnp.maximum(lam_ref[0, t], 1e-10)
+    def frame(t, carry):
+        r_low, i_strict, u_r, u_i, gh, gam = carry
+        Rr = dict(zip(low, r_low))
+        Ri = dict(zip(strict, i_strict))
+        Ur, Ui = list(u_r), list(u_i)
+        zr = [zr_ref[t, m, :] for m in range(M)]
+        zi = [zi_ref[t, m, :] for m in range(M)]
+        upd = gate_ref[t, :] > 0.5
+        _mvdr_update_ldl(zr, zi, upd, ar, ai, Rr, Ri, Ur, Ui, M, alpha_v, diag, rel_diag)
+        yr, yi = _mvdr_output(zr, zi, ar, ai, Ur, Ui, M)
+
+        p = p_ref[t, :]
+        lam = jnp.maximum(lam_ref[t, :], 1e-10)
         gamma = (yr * yr + yi * yi) / lam
-        xi = alpha_xi * Gh[...] ** 2 * Gam[...] + (1.0 - alpha_xi) * jnp.maximum(gamma - 1.0, 0.0)
-        G_H1 = xi / (1.0 + xi)
-        # G = clip(G_H1^p * gmin^(1-p), gmin, 1) via exp/log (no pow in TC)
-        logG = p * jnp.log(jnp.maximum(G_H1, 1e-30)) + (1.0 - p) * log_gmin
-        G = jnp.clip(jnp.exp(logG), gmin, 1.0)
-        Gh[...] = G_H1
-        Gam[...] = gamma
-        yr_ref[0, t] = yr * G
-        yi_ref[0, t] = yi * G
-        return 0
+        xi = alpha_xi * gh * gh * gam + (1.0 - alpha_xi) * jnp.maximum(gamma - 1.0, 0.0)
+        g_h1 = xi / (1.0 + xi)
+        # G = clip(G_H1^p * gmin^(1-p), gmin, 1) via exp/log
+        log_g = p * jnp.log(jnp.maximum(g_h1, 1e-30)) + (1.0 - p) * log_gmin
+        g = jnp.clip(jnp.exp(log_g), gmin, 1.0)
+        yr_ref[t, :] = yr * g
+        yi_ref[t, :] = yi * g
+        return (
+            tuple(Rr[k] for k in low), tuple(Ri[k] for k in strict),
+            tuple(Ur), tuple(Ui), g_h1, gamma,
+        )
 
-    jax.lax.fori_loop(0, Tc, frame, 0)
+    init = (
+        (zero,) * len(low), (zero,) * len(strict), (zero,) * M, (zero,) * M, one, one,
+    )
+    jax.lax.fori_loop(0, T, frame, init)
 
 
-def pallas_mvdr_scan(
-    Z: jnp.ndarray, gate: jnp.ndarray, steer: jnp.ndarray,
+def pallas_mvdr_omlsa(
+    Z: jnp.ndarray, gate: jnp.ndarray, steer: jnp.ndarray, p: jnp.ndarray, lam: jnp.ndarray,
     alpha_v: float = 0.9998, diag: float = 1e-6, rel_diag: float = 0.0,
-    f_tile: int = 128, t_chunk: int = 64, interpret: bool = False,
-    p: jnp.ndarray = None, lam: jnp.ndarray = None,
-    alpha_xi: float = 0.92, gmin: float = 0.0631,
+    alpha_xi: float = 0.92, gmin: float = 0.0631, interpret: bool = False,
 ) -> jnp.ndarray:
-    """Fused MVDR frame loop, optionally with the OM-LSA postfilter fused in.
+    """Fused MVDR + OM-LSA frame loop.
 
-    Z: [T, B, F, M] complex64 spectra; gate: [T, B, F] float (1 = update the
-    noise covariance this frame, the ``p < p_vad`` MCRA decision);
-    steer: [F, M] complex steering vectors.
-    Returns Y [T, B, F] complex64.  Matches ``mvdr_step`` without MCRA.
+    Z: [T, B, F, M] complex spectra; gate: [T, B, F] (1 = update the noise
+    covariance this frame, the MCRA decision ``p < p_vad``); steer: [F, M]
+    complex steering vectors; p, lam: [T, B, F] MCRA speech presence and
+    noise PSD.  Returns the postfiltered spectrum Y [T, B, F] in Z's dtype
+    (computed in float32).
 
-    With ``p`` and ``lam`` (the MCRA speech-presence and noise-PSD tracks,
-    [T, B, F]) the kernel also applies the decision-directed OM-LSA gain per
-    frame (enhance_step semantics) and returns the postfiltered spectrum.
+    The (B x F) lanes flatten and pad to a multiple of ``BLOCK_LANES``;
+    each grid block owns ``BLOCK_LANES`` lanes, one per thread.  Padded
+    lanes carry gate = 0, z = 0 and steer = 1; their outputs are dropped.
 
-    The flattened (batch x bin) axis packs jointly into (8-sublane x
-    ``f_tile``-lane) vreg tiles — padding B and F separately to the tile
-    sizes wastes ~half the lanes at F=129 (129 -> 256); joint packing pads
-    B*F to one tile multiple.  T pads to ``t_chunk`` (frame chunks streamed
-    through the innermost grid dim, covariance carry resident in VMEM).
+    ``interpret=True`` runs the Pallas interpreter (CPU tests).  Otherwise
+    the kernel compiles through Triton and needs a CUDA GPU.
     """
-    if (p is None) != (lam is None):
-        raise ValueError(
-            "pallas_mvdr_scan: the fused OM-LSA mode needs BOTH p and lam "
-            f"(got p={'set' if p is not None else 'None'}, "
-            f"lam={'set' if lam is not None else 'None'})"
-        )
     if Z.ndim != 4:
-        raise ValueError(f"pallas_mvdr_scan: Z must be [T, B, F, M] (4-D), got shape {Z.shape}")
+        raise ValueError(f"pallas_mvdr_omlsa: Z must be [T, B, F, M] (4-D), got shape {Z.shape}")
     T, B, F, M = Z.shape
-    cell = _SUB * f_tile  # elements per grid cell
-    E = B * F
-    Ep = int(np.ceil(E / cell) * cell)
-    n_tiles = Ep // cell
-    Tp = int(np.ceil(T / t_chunk) * t_chunk)
-
-    # padded elements carry gate=0 and z=0: their (nan) outputs are sliced
-    # off below and never contaminate real lanes (all ops are elementwise
-    # across the tile)
-    def to_tiles(x, depth_axis_m: bool):
-        # [T, B, F(, M)] real -> [n_tiles, Tp, (M,) 8, f_tile]
-        x = x.reshape(T, E, M) if depth_axis_m else x.reshape(T, E)
-        pad = [(0, Tp - T), (0, Ep - E)] + ([(0, 0)] if depth_axis_m else [])
-        x = jnp.pad(x, pad)
-        if depth_axis_m:
-            x = x.reshape(Tp, n_tiles, _SUB, f_tile, M)
-            return jnp.transpose(x, (1, 0, 4, 2, 3)).astype(jnp.float32)
-        x = x.reshape(Tp, n_tiles, _SUB, f_tile)
-        return jnp.transpose(x, (1, 0, 2, 3)).astype(jnp.float32)
-
-    zr = to_tiles(jnp.real(Z), True)
-    zi = to_tiles(jnp.imag(Z), True)
-    g = to_tiles(gate, False)
-    # steering varies per bin -> materialise per (batch, bin) element
-    se = jnp.broadcast_to(steer[None], (B, F, M)).reshape(E, M)
-    se = jnp.pad(se, [(0, Ep - E), (0, 0)], constant_values=1.0)
-    se = jnp.transpose(se.reshape(n_tiles, _SUB, f_tile, M), (0, 3, 1, 2))
-    ar = jnp.real(se).astype(jnp.float32)  # [n_tiles, M, 8, f_tile]
-    ai = jnp.imag(se).astype(jnp.float32)
-
-    grid = (n_tiles, Tp // t_chunk)  # t innermost: scratch carries across chunks
-
-    fused = p is not None
-    zspec = pl.BlockSpec((1, t_chunk, M, _SUB, f_tile), lambda n, t: (n, t, 0, 0, 0), memory_space=pltpu.VMEM)
-    tspec = pl.BlockSpec((1, t_chunk, _SUB, f_tile), lambda n, t: (n, t, 0, 0), memory_space=pltpu.VMEM)
-    aspec = pl.BlockSpec((1, M, _SUB, f_tile), lambda n, t: (n, 0, 0, 0), memory_space=pltpu.VMEM)
-    scratch = [
-        pltpu.VMEM((M, M, _SUB, f_tile), jnp.float32),
-        pltpu.VMEM((M, M, _SUB, f_tile), jnp.float32),
-        pltpu.VMEM((M, _SUB, f_tile), jnp.float32),
-        pltpu.VMEM((M, _SUB, f_tile), jnp.float32),
-    ]
-    if fused:
-        kern = partial(
-            _mvdr_omlsa_kernel, Tc=t_chunk, M=M, alpha_v=alpha_v, diag=diag,
-            rel_diag=rel_diag, alpha_xi=alpha_xi, gmin=gmin,
+    for name, x in (("gate", gate), ("p", p), ("lam", lam)):
+        if x.shape != (T, B, F):
+            raise ValueError(f"pallas_mvdr_omlsa: {name} must be [T, B, F] = {(T, B, F)}, got {x.shape}")
+    if steer.shape != (F, M):
+        raise ValueError(f"pallas_mvdr_omlsa: steer must be [F, M] = {(F, M)}, got {steer.shape}")
+    if not interpret and jax.default_backend() != "gpu":
+        raise RuntimeError(
+            "pallas_mvdr_omlsa compiles through Triton and needs a CUDA GPU "
+            f"(default backend is {jax.default_backend()!r}); use backend='scan', "
+            "or interpret=True to run the Pallas interpreter"
         )
-        in_specs = [zspec, zspec, tspec, tspec, tspec, aspec, aspec]
-        operands = (zr, zi, g, to_tiles(p, False), to_tiles(lam, False), None, None)
-        scratch += [
-            pltpu.VMEM((_SUB, f_tile), jnp.float32),
-            pltpu.VMEM((_SUB, f_tile), jnp.float32),
-        ]
-    else:
-        kern = partial(_mvdr_kernel, Tc=t_chunk, M=M, alpha_v=alpha_v, diag=diag, rel_diag=rel_diag)
-        in_specs = [zspec, zspec, tspec, aspec, aspec]
-        operands = (zr, zi, g, None, None)
 
+    E = B * F
+    Ep = -(-E // BLOCK_LANES) * BLOCK_LANES
+    f32 = jnp.float32
+
+    def lanes(x, fill=0.0):  # [T, B, F(, M)] -> [T, (M,) Ep] float32
+        if x.ndim == 4:
+            x = jnp.swapaxes(x.reshape(T, E, M), 1, 2)
+        else:
+            x = x.reshape(T, E)
+        pad = [(0, 0)] * (x.ndim - 1) + [(0, Ep - E)]
+        return jnp.pad(x.astype(f32), pad, constant_values=fill)
+
+    se = jnp.broadcast_to(steer[None], (B, F, M)).reshape(E, M).T  # [M, E]
+    se = jnp.pad(se, [(0, 0), (0, Ep - E)], constant_values=1.0)
+    operands = (
+        lanes(jnp.real(Z)), lanes(jnp.imag(Z)), lanes(gate), lanes(p), lanes(lam, 1.0),
+        jnp.real(se).astype(f32), jnp.imag(se).astype(f32),
+    )
+
+    zspec = pl.BlockSpec((T, M, BLOCK_LANES), lambda n: (0, 0, n))
+    tspec = pl.BlockSpec((T, BLOCK_LANES), lambda n: (0, n))
+    aspec = pl.BlockSpec((M, BLOCK_LANES), lambda n: (0, n))
+    kern = partial(
+        _mvdr_omlsa_kernel, T=T, M=M, alpha_v=alpha_v, diag=diag, rel_diag=rel_diag,
+        alpha_xi=alpha_xi, gmin=gmin,
+    )
     yr, yi = pl.pallas_call(
         kern,
-        grid=grid,
-        in_specs=in_specs,
+        grid=(Ep // BLOCK_LANES,),
+        in_specs=[zspec, zspec, tspec, tspec, tspec, aspec, aspec],
         out_specs=[tspec, tspec],
-        out_shape=[
-            jax.ShapeDtypeStruct((n_tiles, Tp, _SUB, f_tile), jnp.float32),
-            jax.ShapeDtypeStruct((n_tiles, Tp, _SUB, f_tile), jnp.float32),
-        ],
-        scratch_shapes=scratch,
+        out_shape=[jax.ShapeDtypeStruct((T, Ep), f32)] * 2,
+        backend="triton",
+        compiler_params=plgpu.CompilerParams(num_warps=NUM_WARPS, num_stages=1),
         interpret=interpret,
-    )(*operands[:-2], ar, ai)
-
-    # [n_tiles, Tp, 8, f_tile] -> [T, B, F]
-    Y = (yr + 1j * yi).transpose(1, 0, 2, 3).reshape(Tp, Ep)
-    return Y[:T, :E].reshape(T, B, F).astype(Z.dtype)
+        name=KERNEL_NAME,
+    )(*operands)
+    Y = jax.lax.complex(yr[:, :E], yi[:, :E]).reshape(T, B, F)
+    return Y.astype(Z.dtype)

@@ -1,9 +1,9 @@
-"""Device-mesh construction for multichip / multihost processing.
+"""Device-mesh construction for multi-device / multi-host processing.
 
 The framework's parallel axes (SURVEY §2):
 
-- ``dp``   — data parallel over utterances (across hosts, on DCN);
-- ``fb``   — frequency-bin model parallel (across chips, on ICI): every
+- ``dp``   — data parallel over utterances (across devices and hosts);
+- ``fb``   — frequency-bin model parallel (across devices): every
   per-bin recursion in this codebase is embarrassingly parallel over bins;
   only broadband reductions (SRP angle power, frame-mean SPP gates, AEC
   transfer-logic energies) and the MCRA 3-tap frequency smoothing (a 1-bin
@@ -11,7 +11,8 @@ The framework's parallel axes (SURVEY §2):
   from the sharding annotations.
 
 The frame axis is recursive (IIR) and is never sharded — it is the
-``lax.scan`` axis.
+``lax.scan`` axis.  The cards of one host are joined all to all (NVLink),
+so the mesh shape follows the algorithm alone.
 """
 
 from __future__ import annotations
@@ -26,9 +27,8 @@ from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 def make_mesh(n_dp: Optional[int] = None, n_fb: Optional[int] = None, devices=None) -> Mesh:
     """Build a ('dp', 'fb') mesh over the available devices.
 
-    With no arguments: all devices go to ``fb`` (bin sharding) on a single
-    host, which is the right default for one pod slice; pass ``n_dp`` to
-    split utterance data-parallelism off the front.
+    With no arguments: all devices go to ``fb`` (bin sharding); pass
+    ``n_dp`` to split utterance data-parallelism off the front.
     """
     if devices is None:
         devices = jax.devices()

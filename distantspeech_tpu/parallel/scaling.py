@@ -1,9 +1,9 @@
 """Scaling harness: audio-seconds/s across mesh shapes (SURVEY §7.8).
 
 Measures the sharded flagship pipeline at a list of ('dp', 'fb') mesh
-shapes over however many devices exist — one real chip, a virtual
-8-device CPU mesh, or a multi-host slice (initialise jax.distributed
-before calling and the same code runs over DCN+ICI).
+shapes over however many devices exist — one GPU, the cards of one host,
+a virtual CPU mesh, or several hosts (initialise jax.distributed before
+calling and the same code runs across them).
 
 Beyond raw throughput, each shape reports:
 
@@ -120,7 +120,7 @@ def measure_scaling(
     geom = ArrayGeometry.linear(n_mics, 0.032, fs=fs)
     S = int(fs * seconds) // 128 * 128
     results = []
-    base_tput = None
+    base_rate = None
     for (dp, fb) in mesh_shapes:
         if dp * fb > n_dev:
             continue
@@ -134,7 +134,7 @@ def measure_scaling(
             t0 = time.perf_counter()
             for _ in range(n):
                 y = run(x)
-            np.asarray(jax.device_get(jnp.sum(jnp.abs(y), axis=-1)[:1]))
+            y.block_until_ready()
             return time.perf_counter() - t0
 
         timed(1)
@@ -145,20 +145,20 @@ def measure_scaling(
             pairs=((n1, iters), (n1 + 1, iters + 1), (n1 + 2, iters + 2)),
             min_per_iter=B * seconds / 1.0e6,
         )
-        tput = B * seconds / per
+        rate = B * seconds / per
         entry = {
             "mesh": f"{dp}x{fb}",
             "devices": dp * fb,
             "batch": B,
-            "audio_seconds_per_s": tput,
+            "audio_seconds_per_s": rate,
         }
-        if base_tput is None and dp * fb == 1:
-            base_tput = tput
-        if base_tput is not None:
+        if base_rate is None and dp * fb == 1:
+            base_rate = rate
+        if base_rate is not None:
             # batch scales with dp, so ideal throughput is base * dp * fb in
             # every mode: dp multiplies work done (weak), fb divides the time
             # a fixed problem takes (strong)
-            entry["efficiency"] = round(tput / (base_tput * dp * fb), 3)
+            entry["efficiency"] = round(rate / (base_rate * dp * fb), 3)
             entry["scaling_mode"] = (
                 "baseline" if dp * fb == 1
                 else "weak(dp)" if fb == 1
@@ -178,24 +178,22 @@ def measure_scaling(
 def runner_collectives(n_mics: int = 4, fs: int = 16000) -> Dict[str, Dict]:
     """Collective attribution for EVERY sharded runner's compiled HLO — the
     "negligible comms" claim, checked per program that actually ships
-    sharded (VERDICT r3 #9).  The batch-dp runners (mega, fused TDGSC) must
-    show zero collectives; the fb-sharded runners show the per-frame halo +
-    edge redistributes.  Runs on whatever devices exist (CPU mesh in CI).
+    sharded.  The kernel runner's shard_map region must show zero
+    collectives; the fb-sharded runners show the per-frame halo + edge
+    redistributes.  Runs on whatever devices exist; the kernel runner's row
+    records an error where they are not CUDA GPUs.
     """
     from distantspeech_tpu.beamform.gsc import GscConfig
     from distantspeech_tpu.beamform.subband_gsc import SubbandGscConfig
-    from distantspeech_tpu.beamform.tdgsc import TdGscConfig
     from distantspeech_tpu.derev.wpe import WpeConfig
     from distantspeech_tpu.parallel.sharded import (
-        make_sharded_enhance_mega, make_sharded_enhance_pallas, make_sharded_gsc,
-        make_sharded_subband_gsc, make_sharded_tdgsc_fused, make_sharded_wpe,
+        make_sharded_enhance_pallas, make_sharded_gsc, make_sharded_subband_gsc, make_sharded_wpe,
     )
 
     n_dev = len(jax.devices())
     dp = 2 if n_dev % 2 == 0 and n_dev > 1 else 1
     mesh = make_mesh(dp, n_dev // dp)
     geom = ArrayGeometry.linear(n_mics, 0.032, fs=fs)
-    interp = jax.devices()[0].platform != "tpu"
     ang = (197.0 / 180.0 * np.pi, 0.0)
     rng = np.random.default_rng(0)
 
@@ -205,12 +203,8 @@ def runner_collectives(n_mics: int = 4, fs: int = 16000) -> Dict[str, Dict]:
     cases = {
         "enhance_scan": (make_sharded_enhance(mesh, geom, (90.0, 0.0), EnhanceConfig()),
                          x_of(2 * dp, n_mics, 128 * 8)),
-        "enhance_pallas": (make_sharded_enhance_pallas(mesh, geom, (90.0, 0.0), EnhanceConfig(), interpret=interp),
+        "enhance_pallas": (make_sharded_enhance_pallas(mesh, geom, (90.0, 0.0), EnhanceConfig()),
                            x_of(2 * dp, n_mics, 128 * 8)),
-        "enhance_mega": (make_sharded_enhance_mega(mesh, geom, (90.0, 0.0), EnhanceConfig(), interpret=interp),
-                         x_of(8 * n_dev, n_mics, 128 * 4)),
-        "tdgsc_fused": (make_sharded_tdgsc_fused(mesh, geom, ang, TdGscConfig(n_mics=n_mics), interpret=interp),
-                        x_of(8 * n_dev, n_mics, 256 * 3)),
         "wpe": (make_sharded_wpe(mesh, WpeConfig(num_bands=64, hop=32, n_channels=2, filter_len=2, delay=2)),
                 x_of(2 * dp, 2, 32 * 12)),
         "subband_gsc": (make_sharded_subband_gsc(mesh, geom, ang, SubbandGscConfig(n_mics=n_mics, frame_len=128)),
@@ -233,7 +227,7 @@ if __name__ == "__main__":
     import json
 
     ap = argparse.ArgumentParser()
-    ap.add_argument("--out", default=None, help="write the SCALING.json artifact here")
+    ap.add_argument("--out", default=None, help="write the JSON artifact here")
     ap.add_argument("--cpu-virtual", type=int, default=0,
                     help="force a virtual CPU mesh with this many devices")
     args = ap.parse_args()
@@ -256,8 +250,7 @@ if __name__ == "__main__":
             "collectives are static op counts + payload bytes from the compiled HLO "
             "(ops inside the frame scan execute once per frame). On a virtual CPU "
             "mesh, devices share one host's cores, so efficiency below 1 reflects "
-            "core contention + per-step overhead, NOT communication volume — see "
-            "docs/performance.md 'Scaling' for the diagnosis."
+            "core contention + per-step overhead, NOT communication volume."
         ),
         "results": results,
         "runner_collectives": runners,

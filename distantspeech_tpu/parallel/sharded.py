@@ -2,8 +2,8 @@
 
 The scaling recipe (SURVEY §2, §5): annotate the shardings of the batch and
 of the per-bin state, and let XLA insert the collectives — the MCRA
-frequency smoothing becomes a 1-bin halo exchange (collective-permute on
-ICI), the scalar frame counters replicate, and everything else is local to
+frequency smoothing becomes a 1-bin halo exchange (a collective-permute),
+the scalar frame counters replicate, and everything else is local to
 its bin shard.  No hand-written NCCL-style communication, by design.
 """
 
@@ -81,22 +81,21 @@ def make_sharded_enhance_pallas(
     geometry: ArrayGeometry,
     look_angle_deg=(90.0, 0.0),
     cfg: EnhanceConfig = EnhanceConfig(),
-    interpret: bool = False,
 ):
     """The flagship fast path over a ('dp','fb') mesh via shard_map.
 
     The MCRA pre-scan runs under GSPMD (its 1-bin frequency-smoothing halo
-    is XLA-inserted); the fused Pallas MVDR+OM-LSA kernel then runs
-    per-device on its local (batch-shard x bin-shard) block under
+    is XLA-inserted); the MVDR+OM-LSA kernel (``ops.pallas_mvdr``) then runs
+    per device on its local (batch-shard x bin-shard) block under
     ``shard_map`` — the kernel is purely per-bin, so the shard region needs
     no collectives at all.  Bins pad up to a multiple of the fb axis (padded
     bins carry gate=0/steer=1 and are dropped before synthesis).
 
-    Returns f(x [B, M, S]) -> [B, S]; B divisible by dp.  ``interpret=True``
-    runs the kernel in interpreter mode (CPU-mesh testing).
+    Returns f(x [B, M, S]) -> [B, S]; B divisible by dp.  The kernel needs
+    CUDA GPUs.
     """
     from distantspeech_tpu.noise.mcra import mcra_run
-    from distantspeech_tpu.ops.pallas_mvdr import pallas_mvdr_scan
+    from distantspeech_tpu.ops.pallas_mvdr import pallas_mvdr_omlsa
 
     n_fb = mesh.shape["fb"]
     mv = cfg.mvdr
@@ -112,9 +111,9 @@ def make_sharded_enhance_pallas(
     spec_a = P("fb", None)
 
     def _local(Z, gate, a, p, lam):
-        return pallas_mvdr_scan(
-            Z, gate, a, alpha_v=mv.alpha_v, diag=mv.diag, rel_diag=mv.rel_diag,
-            p=p, lam=lam, alpha_xi=cfg.alpha_xi, gmin=cfg.gmin, interpret=interpret,
+        return pallas_mvdr_omlsa(
+            Z, gate, a, p, lam, alpha_v=mv.alpha_v, diag=mv.diag, rel_diag=mv.rel_diag,
+            alpha_xi=cfg.alpha_xi, gmin=cfg.gmin,
         )
 
     local_kernel = jax.shard_map(
@@ -130,7 +129,6 @@ def make_sharded_enhance_pallas(
         x = jax.lax.with_sharding_constraint(x, in_sharding)
         X = analysis(x, cfg.stft)  # [B, M, T, F]
         Zt = jnp.moveaxis(jnp.moveaxis(X, -3, -1), -3, 0)  # [T, B, F, M]
-        T, B = Zt.shape[0], Zt.shape[1]
         Zt = jnp.pad(Zt, [(0, 0), (0, 0), (0, Fp - F), (0, 0)])
         Zt = jax.lax.with_sharding_constraint(Zt, NamedSharding(mesh, spec_z))
 
@@ -309,93 +307,5 @@ def make_sharded_gsc(mesh: Mesh, geometry: ArrayGeometry, angle_rad=(197.0 / 180
         _, Y = jax.lax.scan(lambda s, z: gsc_step(cfg, jnp.asarray(a).astype(z.dtype), s, z), state, Zt)
         Y = jax.lax.with_sharding_constraint(Y, NamedSharding(mesh, P(None, "dp", "fb")))
         return synthesis(jnp.moveaxis(Y, 0, -2), cfg.stft)
-
-    return run
-
-
-def make_sharded_enhance_mega(
-    mesh: Mesh,
-    geometry: ArrayGeometry,
-    look_angle_deg=(90.0, 0.0),
-    cfg: EnhanceConfig = EnhanceConfig(),
-    interpret: bool = None,
-    mxu: str = "highest",
-    sub: int = 8,
-    inv_mode: str = "ldl",
-):
-    """The bench-default mega kernel (``fused_enhance_full`` — the WHOLE
-    pipeline in one Pallas call) over the mesh, batch-data-parallel.
-
-    Utterances are independent end to end, so the batch axis shards over
-    EVERY mesh axis (dp x fb) and each device runs the full kernel on its
-    local shard — zero collectives in the shard region (verified by
-    ``parallel.scaling.collective_stats``, SCALING.json v3).  This is the
-    multi-chip story for the path bench.py actually measures; the fb-sharded
-    runners above cover the model-parallel (per-bin state) recipe.
-
-    Returns f(x [B, M, S]) -> [B, S]; B divisible by n_devices * sub.
-    """
-    from distantspeech_tpu.ops.pallas_enhance import fused_enhance_full
-
-    if interpret is None:
-        interpret = mesh.devices.ravel()[0].platform != "tpu"
-    angle_rad = np.asarray(look_angle_deg, dtype=np.float64) / 180.0 * np.pi
-    steer = np.asarray(steering_vector(geometry, angle_rad, cfg.stft.n_fft), dtype=np.complex64)
-    axes = tuple(mesh.axis_names)
-    batch_spec = P(axes, None, None)
-
-    def _local(x_loc):
-        return fused_enhance_full(x_loc, steer, cfg, interpret=interpret, mxu=mxu, sub=sub,
-                                  inv_mode=inv_mode)
-
-    local = jax.shard_map(
-        _local, mesh=mesh, in_specs=(batch_spec,), out_specs=P(axes, None),
-        check_vma=False,
-    )
-
-    @jax.jit
-    def run(x):
-        x = jax.lax.with_sharding_constraint(x, NamedSharding(mesh, batch_spec))
-        return local(x)
-
-    return run
-
-
-def make_sharded_tdgsc_fused(
-    mesh: Mesh,
-    geometry: ArrayGeometry,
-    angle_rad=(197.0 / 180.0 * np.pi, 0.0),
-    cfg=None,
-    interpret: bool = None,
-    sub: int = 8,
-):
-    """The fused TDGSC frame-loop kernel (``ops.pallas_flms.fused_tdgsc``)
-    batch-data-parallel over every mesh axis; collective-free like the mega
-    runner (utterances are independent).  Returns f(x [B, M, S]) ->
-    (out [B, S'], p [B, T, F], bm [B, M-1, S']); B divisible by
-    n_devices * sub."""
-    from distantspeech_tpu.beamform.tdgsc import TdGscConfig
-    from distantspeech_tpu.ops.pallas_flms import fused_tdgsc
-
-    if cfg is None:
-        cfg = TdGscConfig(n_mics=geometry.n_mics)
-    if interpret is None:
-        interpret = mesh.devices.ravel()[0].platform != "tpu"
-    axes = tuple(mesh.axis_names)
-    batch_spec = P(axes, None, None)
-
-    def _local(x_loc):
-        return fused_tdgsc(x_loc, geometry, angle_rad, cfg, interpret=interpret, sub=sub)
-
-    local = jax.shard_map(
-        _local, mesh=mesh, in_specs=(batch_spec,),
-        out_specs=(P(axes, None), P(axes, None, None), P(axes, None, None)),
-        check_vma=False,
-    )
-
-    @jax.jit
-    def run(x):
-        x = jax.lax.with_sharding_constraint(x, NamedSharding(mesh, batch_spec))
-        return local(x)
 
     return run

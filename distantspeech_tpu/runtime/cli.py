@@ -191,8 +191,12 @@ def run(args) -> np.ndarray:
     return y
 
 
-def main():  # pragma: no cover - thin wrapper
-    run(build_parser().parse_args())
+def main(argv=None):
+    from distantspeech_tpu.runtime.cache import enable_compile_cache
+
+    args = build_parser().parse_args(argv)
+    enable_compile_cache()
+    return run(args)
 
 
 if __name__ == "__main__":

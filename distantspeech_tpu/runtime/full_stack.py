@@ -107,31 +107,16 @@ def full_stack_step(
 def full_stack_process(
     x: jnp.ndarray, far_end: jnp.ndarray, geometry: ArrayGeometry,
     angle_rad=(197.0 / 180.0 * np.pi, 0.0), cfg: FullStackConfig = FullStackConfig(),
-    unroll: int = 1, backend: str = "scan",
+    unroll: int = 1,
 ):
     """Offline run of the full stack.
 
     x: [..., M, S]; far_end: [..., S].
     Returns (enhanced [..., S'], kws_clean [..., S'], p [..., T, F]).
 
-    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py).
-    ``backend``: 'scan' (one monolithic block scan, any shape/device) or
-    'fused' (three chained Pallas frame-loop kernels — AEC, KWS, TDGSC with
-    in-kernel OMLSA; TPU, [B, M, S] with B % 8 == 0).  The stages only feed
-    forward (AEC output -> KWS tap / GSC input), so chaining whole-utterance
-    kernels is exactly the scan's math."""
+    ``unroll``: frame-scan lowering hint, numerically inert (see gsc.py)."""
     if cfg.aec.block_len != cfg.frame_len:
         raise ValueError("aec.block_len must equal frame_len for the composed stack")
-    if backend == "fused":
-        from distantspeech_tpu.ops.pallas_aec import fused_aec
-        from distantspeech_tpu.ops.pallas_flms import fused_kws, fused_tdgsc
-
-        echo_free = fused_aec(far_end, x, cfg.aec)
-        kws_clean = fused_kws(echo_free[..., :2, :], cfg.kws)
-        out, p, _ = fused_tdgsc(echo_free, geometry, angle_rad, cfg.gsc)
-        return out, kws_clean, p
-    if backend != "scan":
-        raise ValueError(f"unknown backend {backend!r}")
     L = cfg.frame_len
     T = x.shape[-1] // L
     # keep the host copy for init: converting via jnp under an outer jit

@@ -71,7 +71,9 @@ class StreamingProcessor:
         lat = np.asarray(self.latencies[skipped:])
         budget = self.chunk_size / self.fs
         ms = lambda v: round(float(v) * 1e3, 4)
+        dev = jax.devices()[0]
         return {
+            "device": {"platform": dev.platform, "kind": dev.device_kind, "count": len(jax.devices())},
             "chunks": self.chunks,
             "overflows": int(np.sum(lat > budget)),
             "overflows_incl_warmup": self.overflows,
@@ -108,9 +110,8 @@ def make_enhance_stream(
     The realtime app loop of the reference (realtime_processing.py:70-136)
     with the per-chunk enhancement step jitted: chunk [M, chunk_size] in,
     [chunk_size] enhanced samples out (hop-aligned; cfg.stft.hop must
-    divide chunk_size).  The carry (STFT tails + covariances + MCRA minima)
-    is built under jit — eager complex-zero creation is unimplemented on
-    remote-attached TPUs.
+    divide chunk_size).  The carry is the STFT tails + covariances + MCRA
+    minima.
     """
     import jax.numpy as jnp
 

@@ -2,10 +2,10 @@
 
 The reference optionally offloads RIR generation to the gpuRIR CUDA
 library (/root/reference/DistantSpeech/beamformer/ArraySim.py:92-138); this
-is the TPU-native equivalent: the Allen-Berkley image-source model as one
-jitted tensor program, batched over sources and mics, with static shapes.
+is the JAX equivalent: the Allen-Berkley image-source model as one jitted
+tensor program, batched over sources and mics, with static shapes.
 
-Design (TPU-first, not a scatter port of sim/room.py):
+Design (dense and batched, not a scatter port of sim/room.py):
 
 - The image lattice for a shoebox is ``(2*(2N+1))^3`` positions with
   per-axis reflection counts that are *constants* given ``max_order``;
@@ -13,7 +13,7 @@ Design (TPU-first, not a scatter port of sim/room.py):
 - The band-limited impulse placement is evaluated DENSELY: each image
   contributes ``amp * hann(u) * sinc(u - frac)`` on its 81-sample support,
   expressed as a masked function of the absolute time axis — no
-  ``scatter_add`` (serial and slow on TPU), just vectorised VPU math
+  ``scatter_add`` (serialising atomics), just vectorised elementwise math
   accumulated with ``lax.scan`` over image blocks.
 - Numerics match ``sim.room.image_source_rir`` (the host fixture path) to
   float32 round-off: same Hann sampling at integer offsets from

@@ -39,8 +39,8 @@ def best_aligned_si_sdr(est: np.ndarray, ref: np.ndarray, max_lag: int = 1024) -
     (SubbandGSC.py:139 — ours: ops.delay.delay_samples in subband_gsc_step)
     and the n_fft=512 STFT round-trip adds another 256, so its output lags
     ~512 samples.  The old 400-sample default missed that, and a merely
-    *delayed* output scored as decorrelated: the round-4 REAL_AUDIO.json
-    "subband_gsc −21.4 dB" row was THIS metric artifact (both our and the
+    *delayed* output scored as decorrelated: the round-4 real-speech
+    "subband_gsc −21.4 dB" result was THIS metric artifact (both our and the
     reference's outputs, delayed identically, scored −21); at a covering
     lag the same outputs score ≈ +0.5 dB."""
     n = min(len(est), len(ref))

@@ -1,13 +1,11 @@
 """Batched small-matrix inverse without XLA's serial LU path.
 
-``jnp.linalg.inv`` lowers to a blocked LU with data-dependent control flow
-that is latency-bound on TPU for many small matrices — profiling the
-flagship pipeline showed the [B, F, 8, 8] per-frame inverse dominating the
-whole scan.  For the diagonally-loaded Hermitian matrices this framework
-inverts (covariances + eps*I), an **unrolled Gauss-Jordan elimination
-without pivoting** is numerically safe and runs as M fully-vectorised
-elementwise steps over the batch — pure VPU work, no loops in the lowered
-program.
+``jnp.linalg.inv`` lowers to a blocked LU with pivoting and data-dependent
+control flow, latency-bound for many small matrices.  For the
+diagonally-loaded Hermitian matrices this framework inverts (covariances +
+eps*I), an **unrolled Gauss-Jordan elimination without pivoting** is
+numerically safe and runs as M fully-vectorised elementwise steps over the
+batch — fusible elementwise work, no loops in the lowered program.
 """
 
 from __future__ import annotations
@@ -19,10 +17,10 @@ def matvec(A: jnp.ndarray, x: jnp.ndarray) -> jnp.ndarray:
     """Batched ``A @ x`` for tiny trailing dims as broadcast-multiply-reduce.
 
     A: [..., M, N]; x: [..., N] -> [..., M].  A batched dot_general whose
-    contraction is tiny (M, N <= ~32) lowers to per-batch-element MXU
-    dispatches on TPU — measured 35x slower than this pure-VPU form on the
-    GSC pipeline (docs/performance.md, round 3).  Mixed real/complex
-    operands broadcast-promote, so no .astype is needed at call sites.
+    contraction is tiny (M, N <= ~32) becomes many tiny matmuls that
+    cannot fuse with the surrounding step; this elementwise form fuses.
+    Mixed real/complex operands broadcast-promote, so no .astype is needed
+    at call sites.
     """
     return jnp.sum(A * x[..., None, :], axis=-1)
 

@@ -20,8 +20,8 @@ def array_gain(weights, steer, Rvv, return_db: bool = False):
 
     weights, steer: [..., F, C]; Rvv: [..., F, C, C] -> [..., F].
     """
-    num = jnp.einsum("...i,...i->...", jnp.conj(weights), steer)
-    den = jnp.einsum("...i,...ij,...j->...", jnp.conj(weights), Rvv, weights)
+    num = jnp.einsum("...i,...i->...", jnp.conj(weights), steer, precision="highest")
+    den = jnp.einsum("...i,...ij,...j->...", jnp.conj(weights), Rvv, weights, precision="highest")
     G = jnp.abs(num) ** 2 / jnp.abs(den)
     if return_db:
         G = 10.0 * jnp.log10(G + 1e-6)
@@ -54,5 +54,5 @@ def beampattern(geometry: ArrayGeometry, weights, n_fft: int, n_azimuths: int = 
     az = np.arange(n_azimuths) * (360.0 / n_azimuths) / 180.0 * np.pi
     angles = np.stack([az, np.zeros_like(az)], axis=-1)
     a = jnp.asarray(steering_vector(geometry, angles, n_fft))  # [A, F, C]
-    resp = jnp.abs(jnp.einsum("fc,afc->af", jnp.conj(weights), a.astype(weights.dtype)))
+    resp = jnp.abs(jnp.einsum("fc,afc->af", jnp.conj(weights), a.astype(weights.dtype), precision="highest"))
     return 20.0 * jnp.log10(resp + 1e-12)

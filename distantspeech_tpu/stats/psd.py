@@ -41,8 +41,8 @@ def rank1_update(R: jnp.ndarray, z: jnp.ndarray, alpha: float) -> jnp.ndarray:
     """Recursive spatial covariance: R <- alpha R + (1-alpha) z z^H.
 
     R: [..., F, C, C]; z: [..., F, C].  The outer product batches over bins —
-    on TPU this is a small broadcasted multiply the compiler fuses with the
-    decay; no per-bin loop, no matmul needed for a rank-1 term.
+    a small broadcasted multiply the compiler fuses with the decay; no
+    per-bin loop, no matmul needed for a rank-1 term.
     """
     outer = z[..., :, None] * jnp.conj(z)[..., None, :]
     return alpha * R + (1.0 - alpha) * outer

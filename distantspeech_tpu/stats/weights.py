@@ -25,9 +25,9 @@ def mvdr_weights(steer: jnp.ndarray, Rvv_inv: jnp.ndarray) -> jnp.ndarray:
 
     steer: [..., F, C]; Rvv_inv: [..., F, C, C] -> w: [..., F, C].
     """
-    # multiply-reduce: tiny batched contractions lower to per-bin MXU
-    # dispatches on TPU (see stats.linalg.matvec) and this runs per frame
-    # inside mvdr scans
+    # multiply-reduce: tiny batched contractions become per-bin matmul
+    # dispatches (see stats.linalg.matvec) and this runs per frame inside
+    # mvdr scans
     num = matvec(Rvv_inv, steer)
     den = jnp.sum(jnp.conj(steer) * num, axis=-1)
     return num / den[..., None]
@@ -67,9 +67,9 @@ def blind_analytic_normalization(w: jnp.ndarray, Rvv: jnp.ndarray, eps: float = 
 
     w: [..., C]; Rvv: [..., C, C].  Cf. beamformer.py:34-63.
     """
-    num = jnp.einsum("...a,...ab,...bc,...c->...", jnp.conj(w), Rvv, Rvv, w)
+    num = jnp.einsum("...a,...ab,...bc,...c->...", jnp.conj(w), Rvv, Rvv, w, precision="highest")
     num = jnp.abs(jnp.sqrt(num))
-    den = jnp.abs(jnp.einsum("...a,...ab,...b->...", jnp.conj(w), Rvv, w))
+    den = jnp.abs(jnp.einsum("...a,...ab,...b->...", jnp.conj(w), Rvv, w, precision="highest"))
     return w * (num / (den + eps))[..., None]
 
 
@@ -83,11 +83,12 @@ def gev_weights(Rxx: jnp.ndarray, Rvv: jnp.ndarray) -> jnp.ndarray:
     L = jnp.linalg.cholesky(Rvv)
     Li = jnp.linalg.inv(L)
     # whitened matrix: Li Rxx Li^H
-    A = Li @ Rxx @ jnp.swapaxes(jnp.conj(Li), -1, -2)
+    A = jnp.matmul(jnp.matmul(Li, Rxx, precision="highest"), jnp.swapaxes(jnp.conj(Li), -1, -2),
+                   precision="highest")
     _, vecs = jnp.linalg.eigh(A)
     v = vecs[..., :, -1]
     # un-whiten: w = Li^H v
-    return jnp.einsum("...ji,...j->...i", jnp.conj(Li), v)
+    return jnp.einsum("...ji,...j->...i", jnp.conj(Li), v, precision="highest")
 
 
 def phase_correction(w: jnp.ndarray) -> jnp.ndarray:

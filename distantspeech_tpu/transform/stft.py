@@ -77,9 +77,7 @@ def _dft_matrices(cfg: StftConfig) -> Tuple[np.ndarray, np.ndarray]:
     """Windowed forward rDFT as two real matrices: Y = f @ (C + iS).
 
     The window is folded in, so the whole analysis frame op is ONE real
-    matmul pair — on TPU this runs on the MXU, an order of magnitude faster
-    than XLA's small-size batched FFT (measured: the rfft was the single
-    most expensive op of the flagship pipeline).
+    matmul pair (against cuFFT on the GPU: not measured yet).
     """
     n = np.arange(cfg.n_fft)[:, None]
     k = np.arange(cfg.half_bin)[None, :]
@@ -113,19 +111,18 @@ def stft_frames(x: jnp.ndarray, cfg: StftConfig) -> jnp.ndarray:
     C, S = _dft_matrices(cfg)
     F = cfg.half_bin
     # one matmul pass for both real and imaginary parts: the frames tensor
-    # (the big operand) is read once.  precision='highest' keeps the f32 MXU
-    # path at ~1e-7 relative error; the default bf16 pass would be ~1e-3 and
-    # break 1e-4 parity.  The sin columns at k=0 (and k=F-1 for even n_fft)
-    # are dropped: their true DFT value is exactly 0 (sin(pi*n) is ~1e-16
-    # rounding noise as computed), and keeping them pads the matmul's output
-    # width onto an extra 128-lane MXU tile (258 -> 384 for n_fft=256).
+    # (the big operand) is read once.  precision='highest' keeps the f32
+    # path at ~1e-7 relative error; a reduced-precision pass (bf16 or TF32)
+    # would be ~1e-3 and break 1e-4 parity.  The sin columns at k=0 (and
+    # k=F-1 for even n_fft) are dropped: their true DFT value is exactly 0
+    # (sin(pi*n) is ~1e-16 rounding noise as computed), and the output
+    # width stays a multiple of 128 (256 for n_fft=256).
     hi = F - 1 if cfg.n_fft % 2 == 0 else F
     CS = jnp.asarray(np.concatenate([C, S[:, 1:hi]], axis=1), dtype=x.dtype)
     if cfg.n_fft == 2 * cfg.hop:
         # 50% overlap: frame t = hop-blocks (t, t+1), both free reshapes —
         # two half-frame matmuls instead of materialising the 2x-sized
-        # overlapping-frame tensor (measured: the gather alone cost as much
-        # as the matmul itself on TPU).
+        # overlapping-frame tensor (a gather as large as the matmul).
         T = 1 + (x.shape[-1] - cfg.n_fft) // cfg.hop
         blocks = x[..., : (T + 1) * cfg.hop].reshape(*x.shape[:-1], T + 1, cfg.hop)
         Y = jnp.matmul(blocks[..., :-1, :], CS[: cfg.hop], precision="highest")
@@ -146,8 +143,8 @@ def istft_frames(Y: jnp.ndarray, cfg: StftConfig) -> jnp.ndarray:
     A, B = _idft_matrices(cfg)
     F = cfg.half_bin
     # the sin rows at k=0 (and k=F-1 for even n_fft) are structural zeros —
-    # drop them and the matching imag inputs so the contraction dim lands on
-    # an MXU tile boundary (see stft_frames).
+    # drop them and the matching imag inputs so the contraction dim is a
+    # multiple of 128 (see stft_frames).
     hi = F - 1 if cfg.n_fft % 2 == 0 else F
     Yr = jnp.real(Y)
     AB = jnp.asarray(np.concatenate([A, B[1:hi]], axis=0), dtype=Yr.dtype)

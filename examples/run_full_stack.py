@@ -4,22 +4,16 @@ time-domain GSC + OMLSA postfilter, offline and streaming.
 Mirrors the reference's realtime composition (realtime_processing.py driving
 an EnhancementMethod per chunk, with the speex AEC of aec.py:227 in front):
 synthesizes a reverberant scene with a known far-end echo path, runs the
-composed stack offline (scan backend; pass --fused on a TPU for the
-three-kernel Pallas path), then re-runs it chunk by chunk through the
+composed stack offline, then re-runs it chunk by chunk through the
 streaming driver and reports the chunk-latency contract.
 
-    python examples/run_full_stack.py [--cpu] [--fused]
+    python examples/run_full_stack.py [--cpu]
 """
-
-import sys
 
 import numpy as np
 
 from _common import demo_args, make_scene, maybe_save, si_sdr
 
-args_extra_fused = "--fused" in sys.argv
-if args_extra_fused:
-    sys.argv.remove("--fused")
 args = demo_args("full AEC+KWS+GSC+OMLSA stack, offline + streaming")
 
 import jax.numpy as jnp
@@ -40,13 +34,11 @@ echo = np.convolve(far, h)[:S].astype(np.float32)
 x = (mix + echo[None, :]).astype(np.float32)
 
 cfg = FullStackConfig(n_mics=4)
-backend = "fused" if args_extra_fused else "scan"
 out, kws_clean, p = full_stack_process(
-    jnp.asarray(x[None]), jnp.asarray(far[None]), geom, (90.0 / 180.0 * np.pi, 0.0),
-    cfg, backend=backend,
+    jnp.asarray(x[None]), jnp.asarray(far[None]), geom, (90.0 / 180.0 * np.pi, 0.0), cfg,
 )
 out = np.asarray(out)[0]
-print(f"offline ({backend}): out {out.shape}, kws tap {np.asarray(kws_clean).shape}, "
+print(f"offline: out {out.shape}, kws tap {np.asarray(kws_clean).shape}, "
       f"p {np.asarray(p).shape}")
 if src is not None:
     # the stack is ~424 samples latent (non-causal AIC 128 + alignment

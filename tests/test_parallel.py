@@ -99,43 +99,33 @@ def test_sharded_subband_gsc_matches_single_device():
     np.testing.assert_allclose(got, want, rtol=2e-4, atol=2e-5)
 
 
-def test_fused_vs_sharded_fused_direct():
-    """DIRECT parity between the benched single-chip fused kernels and the
-    sharded fast path (VERDICT r2 #5): the two fused implementations of the
-    same math must agree on identical input to float32 rounding, not merely
-    transitively through enhance_scan at looser tolerances.  Swept over the
-    production-guard configs (rel_diag) and the VAD gate threshold."""
-    import numpy as np
-
-    from distantspeech_tpu.array.steering import steering_vector
+def test_fused_vs_sharded_fused_direct(interpreted_kernel):
+    """DIRECT parity between the single-device kernel path and the sharded
+    kernel runner on identical input: the same per-lane arithmetic must
+    agree to float32 rounding, not merely transitively through enhance_scan
+    at looser tolerances.  Swept over the production-guard configs
+    (rel_diag) and the VAD gate threshold."""
     from distantspeech_tpu.beamform.mvdr import MvdrConfig
-    from distantspeech_tpu.ops.pallas_enhance import fused_enhance, fused_enhance_full
     from distantspeech_tpu.parallel import make_sharded_enhance_pallas
 
     geom = ArrayGeometry.linear(4, 0.032)
     rng = np.random.default_rng(11)
-    B, M, S = 8, 4, 128 * 16
+    B, M, S = 4, 4, 128 * 16
     t = np.arange(S) / 16000
     env = (np.sin(2 * np.pi * 1.7 * t) > 0).astype(np.float32)
     x = (0.3 * rng.standard_normal((B, M, S)) + env * rng.standard_normal(S)).astype(np.float32)
-    steer = np.asarray(
-        steering_vector(geom, np.array([np.pi / 2, 0.0]), 256), dtype=np.complex64
-    )
 
     for rel_diag, p_vad in [(0.0, 0.4), (1e-3, 0.4), (0.0, 0.8)]:
         cfg = EnhanceConfig(mvdr=MvdrConfig(mcra_L=15, rel_diag=rel_diag, p_vad=p_vad))
-        a = np.asarray(fused_enhance(jnp.asarray(x), steer, cfg, interpret=True))
-        b = np.asarray(fused_enhance_full(jnp.asarray(x), steer, cfg, interpret=True))
-        mesh = make_mesh(2, 4)
-        run = make_sharded_enhance_pallas(mesh, geom, (90.0, 0.0), cfg, interpret=True)
+        a = np.asarray(enhance_process(jnp.asarray(x), geom, (90.0, 0.0), cfg, backend="pallas"))
+        run = make_sharded_enhance_pallas(make_mesh(2, 4), geom, (90.0, 0.0), cfg)
         c = np.asarray(run(jnp.asarray(x)))
         scale = np.max(np.abs(a))
-        np.testing.assert_allclose(b, a, atol=2e-5 * scale, err_msg=f"mega cfg {rel_diag},{p_vad}")
         np.testing.assert_allclose(c, a, atol=2e-5 * scale, err_msg=f"sharded cfg {rel_diag},{p_vad}")
 
 
-def test_sharded_pallas_enhance_matches_single_device():
-    """shard_map + the fused kernel (interpret mode on the CPU mesh):
+def test_sharded_pallas_enhance_matches_single_device(interpreted_kernel):
+    """shard_map + the kernel (interpret mode on the CPU mesh):
     per-device bin shards, GSPMD MCRA pre-scan, padded-bin handling."""
     from distantspeech_tpu.parallel import make_sharded_enhance_pallas
 
@@ -148,47 +138,6 @@ def test_sharded_pallas_enhance_matches_single_device():
     want = np.asarray(enhance_process(jnp.asarray(x), geom, (90.0, 0.0), cfg))
     for n_dp, n_fb in [(2, 4), (4, 2)]:
         mesh = make_mesh(n_dp, n_fb)
-        run = make_sharded_enhance_pallas(mesh, geom, (90.0, 0.0), cfg, interpret=True)
+        run = make_sharded_enhance_pallas(mesh, geom, (90.0, 0.0), cfg)
         got = np.asarray(run(jnp.asarray(x)))
         np.testing.assert_allclose(got, want, rtol=2e-3, atol=2e-4, err_msg=f"mesh {n_dp}x{n_fb}")
-
-
-def test_sharded_mega_matches_single_device():
-    """The dp-sharded mega runner runs the SAME code path bench.py measures
-    (fused_enhance_full): batch shards over every mesh axis, zero
-    collectives in the shard region."""
-    from distantspeech_tpu.ops.pallas_enhance import fused_enhance_full
-    from distantspeech_tpu.array.steering import steering_vector
-    from distantspeech_tpu.parallel import make_sharded_enhance_mega
-
-    geom = ArrayGeometry.linear(4, 0.032)
-    cfg = EnhanceConfig()
-    angle = np.array([90.0, 0.0]) / 180.0 * np.pi
-    steer = np.asarray(steering_vector(geom, angle, cfg.stft.n_fft), dtype=np.complex64)
-    rng = np.random.default_rng(6)
-    x = rng.standard_normal((64, 4, 128 * 4)).astype(np.float32)
-
-    want = np.asarray(fused_enhance_full(jnp.asarray(x), steer, cfg, interpret=True))
-    for n_dp, n_fb in [(8, 1), (2, 4)]:
-        mesh = make_mesh(n_dp, n_fb)
-        run = make_sharded_enhance_mega(mesh, geom, (90.0, 0.0), cfg)
-        got = np.asarray(run(jnp.asarray(x)))
-        np.testing.assert_allclose(got, want, atol=1e-5, err_msg=f"mesh {n_dp}x{n_fb}")
-
-
-def test_sharded_tdgsc_fused_matches_single_device():
-    from distantspeech_tpu.ops.pallas_flms import fused_tdgsc
-    from distantspeech_tpu.beamform.tdgsc import TdGscConfig
-    from distantspeech_tpu.parallel import make_sharded_tdgsc_fused
-
-    geom = ArrayGeometry.linear(4, 0.032)
-    cfg = TdGscConfig(n_mics=4)
-    ang = (197.0 / 180.0 * np.pi, 0.0)
-    rng = np.random.default_rng(7)
-    x = rng.standard_normal((64, 4, 256 * 4)).astype(np.float32)
-
-    want = np.asarray(fused_tdgsc(jnp.asarray(x), geom, ang, cfg, interpret=True)[0])
-    mesh = make_mesh(2, 4)
-    run = make_sharded_tdgsc_fused(mesh, geom, ang, cfg)
-    got = np.asarray(run(jnp.asarray(x))[0])
-    np.testing.assert_allclose(got, want, atol=1e-5)

@@ -140,7 +140,7 @@ def test_hybrid_rir_matches_sabine_rt60():
 
 def test_hybrid_scene_still_enhances():
     """End-to-end: the flagship still improves SI-SDR on a hybrid
-    (ISM + diffuse-tail) scene — the hard-fixture regime of VERDICT r2."""
+    (ISM + diffuse-tail) scene — the hard-fixture regime."""
     import jax.numpy as jnp
 
     from distantspeech_tpu.array.geometry import ArrayGeometry
